@@ -1,0 +1,114 @@
+// FM backward interval search, one thread per search lane.
+//
+// Replaces desamba_tpu/ops/fm.py:interval_search (with occ and popcount32):
+// the lockstep bwt_MEM_search main loop (cly.c:1399-1417) that the JAX
+// package runs as a while_loop over all lanes. Lanes never interact, so a
+// thread that runs its own lane for up to max_steps iterations, stopping
+// when the lane is done, computes exactly what the lockstep loop computes.
+//
+// What bounds it on this card: every step is two dependent random 8-byte
+// gathers into the occ32 table (one for sp, one for ep) followed by a
+// popcount; the table is far larger than L2 at real index sizes, so the
+// kernel is latency-bound on those gathers. The design keeps each lane's
+// whole 8-field carry in registers across its steps, loads each
+// (base count, bit word) pair as one aligned uint2, issues the sp and ep
+// gathers back to back so they are in flight together, and lets a done
+// lane retire its thread instead of idling through later steps.
+//
+// Carry layout: int32 [8, n] rows sp, ep, nsp, nep, match_len, ptr, done,
+// status (the JAX carry's fields in order; done as 0/1).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+// JAX gather semantics for an index into an array of n rows: a negative
+// index counts from the end, then the index is clamped into range.
+__device__ __forceinline__ long long jax_index(long long i, long long n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// Count of char c in BWT rows [0, r): occ32[r >> 5, c] holds the count
+// before the 32-row block and the block's bit word for c.
+__device__ __forceinline__ int occ(const uint2* __restrict__ occ32,
+                                   long long n_blk, int r, int c) {
+  const long long q = jax_index(static_cast<long long>(r >> 5), n_blk);
+  const uint2 p = occ32[q * 5 + c];
+  const unsigned m = (1u << (r & 31)) - 1u;
+  return static_cast<int>(p.x + static_cast<unsigned>(__popc(p.y & m)));
+}
+
+__global__ void interval_search_kernel(
+    const uint2* __restrict__ occ32, long long n_blk,
+    const int* __restrict__ rank, const int* __restrict__ codes, int W,
+    const int* __restrict__ lanes, const int* __restrict__ max_rst,
+    const int* __restrict__ l_min, const int* __restrict__ l_max,
+    const int* __restrict__ st_in, int* __restrict__ st_out, long long n,
+    int max_steps) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  int sp = st_in[i], ep = st_in[n + i];
+  int nsp = st_in[2 * n + i], nep = st_in[3 * n + i];
+  int ml = st_in[4 * n + i], ptr = st_in[5 * n + i];
+  int done = st_in[6 * n + i], status = st_in[7 * n + i];
+  if (!done && max_steps > 0) {
+    const int* row = codes + static_cast<long long>(lanes[i]) * W;
+    const int mr = max_rst[i], lmin = l_min[i], lmax = l_max[i];
+    for (int it = 0; it < max_steps && !done; ++it) {
+      const int ch = (ptr >= 0 && ptr < W) ? row[ptr] : 255;
+      const bool valid_c = ch <= 5;
+      const int cc = ch < 0 ? 0 : (ch > 5 ? 5 : ch);
+      const int c_occ = cc > 4 ? 4 : cc;
+      const int o_sp = occ(occ32, n_blk, sp, c_occ);
+      const int o_ep = occ(occ32, n_blk, ep, c_occ);
+      const int s = valid_c ? rank[cc] + o_sp : 0;
+      const int e = valid_c ? rank[cc] + o_ep : 0;
+      const bool brk1 = (ml >= lmin - 1) && (s + mr >= e);
+      const bool ret0 = (ml >= lmin - 1) && !brk1 && (ml >= lmax);
+      const bool brk2 = !brk1 && !ret0 && (s + 1 >= e);
+      if (brk1 || ret0 || brk2) {
+        nsp = s;
+        nep = e;
+        done = 1;
+        if (ret0) status = 1;
+      } else {
+        sp = s;
+        ep = e;
+        ml += 1;
+      }
+      ptr -= 1;  // also on the stopping step (fm.py:234)
+    }
+  }
+  st_out[i] = sp;
+  st_out[n + i] = ep;
+  st_out[2 * n + i] = nsp;
+  st_out[3 * n + i] = nep;
+  st_out[4 * n + i] = ml;
+  st_out[5 * n + i] = ptr;
+  st_out[6 * n + i] = done;
+  st_out[7 * n + i] = status;
+}
+
+}  // namespace
+
+extern "C" int dsb_interval_search(
+    const void* occ32, long long n_blk, const void* rank, const void* codes,
+    int W, const void* lanes, const void* max_rst, const void* l_min,
+    const void* l_max, const void* st_in, void* st_out, long long n,
+    int max_steps, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    const long long blocks = (n + threads - 1) / threads;
+    interval_search_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint2*>(occ32), n_blk,
+        static_cast<const int*>(rank), static_cast<const int*>(codes), W,
+        static_cast<const int*>(lanes), static_cast<const int*>(max_rst),
+        static_cast<const int*>(l_min), static_cast<const int*>(l_max),
+        static_cast<const int*>(st_in), static_cast<int*>(st_out), n,
+        max_steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,87 @@
+// Per-row LF walks (the no-trace variant), one thread per walk lane.
+//
+// Replaces desamba_tpu/ops/fm.py:row_walks (with lf_cur), the lockstep
+// bwt_single_search (cly.c:1339-1378) without the row trace: from a BWT
+// row, step LF while the BWT char equals the read char at ptr, ptr
+// decreasing, up to max_len steps, flagging pad chars (> 5). Lanes never
+// interact, so one thread running its lane until done or trace_cap steps
+// equals the JAX while_loop exactly.
+//
+// What bounds it on this card: each step is one dependent random 4-byte
+// gather into the fused lfc table (char << 29 | LF row), so a walk is a
+// serial chain of gathers and the kernel is latency-bound. The design
+// keeps the 5-field carry in registers, reads char and next row from one
+// 32-bit word, and retires a lane's thread as soon as its walk stops, so
+// the few long walks do not hold the short ones.
+//
+// Carry layout: int32 [5, n] rows sp, ptr, n, done, bad (done/bad as 0/1).
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kLfcShift = 29;
+constexpr unsigned kLfcRowMask = (1u << kLfcShift) - 1u;
+
+// JAX gather semantics: negative indices count from the end, then clamp.
+__device__ __forceinline__ long long jax_index(long long i, long long n) {
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+__global__ void row_walks_kernel(
+    const unsigned* __restrict__ lfc, long long n_rows,
+    const int* __restrict__ codes, int W, const int* __restrict__ lanes,
+    const int* __restrict__ max_lens, const int* __restrict__ st_in,
+    int* __restrict__ st_out, long long n, int trace_cap) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  int sp = st_in[i], ptr = st_in[n + i], cnt = st_in[2 * n + i];
+  int done = st_in[3 * n + i], bad = st_in[4 * n + i];
+  if (!done && trace_cap > 0) {
+    const int* row = codes + static_cast<long long>(lanes[i]) * W;
+    const int max_len = max_lens[i];
+    for (int it = 0; it < trace_cap && !done; ++it) {
+      const unsigned w = lfc[jax_index(sp, n_rows)];
+      const int c = static_cast<int>(w >> kLfcShift);
+      const int nxt = static_cast<int>(w & kLfcRowMask);
+      const int want = (ptr >= 0 && ptr < W) ? row[ptr] : -1;
+      const bool is_bad = c > 5;
+      const bool match = (c == want) && (cnt < max_len) && !is_bad;
+      if (is_bad && cnt < max_len) bad = 1;
+      if (match) {
+        sp = nxt;
+        ptr -= 1;
+        cnt += 1;
+      } else {
+        done = 1;
+      }
+    }
+  }
+  st_out[i] = sp;
+  st_out[n + i] = ptr;
+  st_out[2 * n + i] = cnt;
+  st_out[3 * n + i] = done;
+  st_out[4 * n + i] = bad;
+}
+
+}  // namespace
+
+extern "C" int dsb_row_walks(const void* lfc, long long n_rows,
+                             const void* codes, int W, const void* lanes,
+                             const void* max_lens, const void* st_in,
+                             void* st_out, long long n, int trace_cap,
+                             void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    const long long blocks = (n + threads - 1) / threads;
+    row_walks_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned*>(lfc), n_rows,
+        static_cast<const int*>(codes), W, static_cast<const int*>(lanes),
+        static_cast<const int*>(max_lens), static_cast<const int*>(st_in),
+        static_cast<int*>(st_out), n, trace_cap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

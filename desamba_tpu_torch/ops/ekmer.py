@@ -1,0 +1,152 @@
+"""Exist-filter probe: rolling e-kmers, low-complexity filter and the
+two-hash bloom test over [B, L] read-code matrices.
+
+Counterpart of desamba_tpu/ops/ekmer.py. Both bitmaps live in one int32
+tensor holding the uint32 words (w1's words after w0's), so the two probes
+of a k-mer are one gather. `_probe_reads` and `kmer_lo26` are plain torch
+in this port; they have no hand kernel yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import u64emu as u64
+from .fm import _popcount_np
+
+
+def _bitmap_load(w: np.ndarray) -> float:
+    """Sampled fraction of set bits (the fold rule needs ~1% accuracy)."""
+    s = np.asarray(w[:: max(1, w.size // (1 << 20))])
+    return int(_popcount_np(s).sum()) / (s.size * 32)
+
+
+def fold_words(w0: np.ndarray, w1: np.ndarray, mask_bits: int,
+               fold_bits="auto"):
+    """The bitmaps OR-folded by 2^k (k = fold_bits, or the "auto" rule:
+    fold while a bitmap exceeds 8M words and its projected load stays
+    under 35%). Folding is bit-exactly the bloom with mask_bits - k, since
+    the address split takes the low bits of the hash.
+
+    Returns (w0, w1, mask_bits, fold_bits)."""
+    if fold_bits == "auto":
+        fold_bits = 0
+        load = max(_bitmap_load(w0), _bitmap_load(w1))
+        while (w0.size >> fold_bits) > (8 << 20):
+            next_load = 1 - (1 - load) ** 2
+            if next_load > 0.35:
+                break
+            fold_bits += 1
+            load = next_load
+    for _ in range(fold_bits):
+        w0 = w0[: w0.size // 2] | w0[w0.size // 2 : 2 * (w0.size // 2)]
+        w1 = w1[: w1.size // 2] | w1[w1.size // 2 : 2 * (w1.size // 2)]
+        mask_bits -= 1
+    return w0, w1, mask_bits, fold_bits
+
+
+class EkArrays:
+    """Both bloom bitmaps in one device tensor plus the static probe
+    parameters (n_words0 = w1's offset, mask_bits, lek, single_base_max)."""
+
+    def __init__(self, w01: torch.Tensor, n_words0: int, mask_bits: int,
+                 lek: int, single_base_max: int, fold_bits: int = 0):
+        self.w01 = w01
+        self.n_words0 = int(n_words0)
+        self.mask_bits = int(mask_bits)
+        self.lek = int(lek)
+        self.single_base_max = int(single_base_max)
+        self.fold_bits = int(fold_bits)
+
+    @classmethod
+    def from_tensor_index(cls, ti, device="cpu", fold_bits=0):
+        w0 = np.asarray(ti.ek_words0).view(np.uint32)
+        w1 = np.asarray(ti.ek_words1).view(np.uint32)
+        w0, w1, mask_bits, fold_bits = fold_words(
+            w0, w1, int(ti.ek_mask_bits), fold_bits)
+        if (1 << mask_bits) > (1 << 35):
+            raise NotImplementedError(
+                "exist filters > 4 GiB need int64 word indexing; shard the "
+                "index instead")
+        w01 = np.concatenate([w0, w1]).view(np.int32)
+        return cls(torch.from_numpy(w01).to(device), w0.size, mask_bits,
+                   int(ti.ek_len), int(ti.ek_single_base_max), fold_bits)
+
+
+def _grid(n_kmer: int, stride: int) -> int:
+    """Stride-grid size: positions p(g) = (stride-1) + stride*g, the probe
+    schedule of search_exist_kmer_M2 (cly.c:979)."""
+    return (n_kmer - stride) // stride + 1
+
+
+def _addr(h):
+    """Hash -> (word index, bit shift within word): byte h>>3, bit 7-(h&7)
+    (idx.c:1019), little-endian u32 words of 4 bytes."""
+    hi, lo = h
+    word_idx = ((lo >> 5) | (hi << 27)) & u64.M32
+    bit = 7 - (lo & 7)
+    return word_idx, ((lo >> 3) & 3) * 8 + bit
+
+
+def _probe_both(w01: torch.Tensor, n_words0: int, h1, h2):
+    """Both bloom tests with one gather into the concatenated bitmaps."""
+    wi1, sh1 = _addr(h1)
+    wi2, sh2 = _addr(h2)
+    n = wi1.shape[0]
+    w = w01[torch.cat([wi1, wi2 + n_words0])].to(torch.int64)
+    r1 = ((w[:n] >> sh1) & 1).bool()
+    r2 = ((w[n:] >> sh2) & 1).bool()
+    return r1, r2
+
+
+def _sub(x: torch.Tensor, j0: int, stride: int, n_g: int) -> torch.Tensor:
+    """Columns j0 + stride*[0, n_g) of a [B, ...] tensor."""
+    return x[:, j0 : j0 + stride * (n_g - 1) + 1 : stride]
+
+
+def _probe_reads(w01, codes, lengths, lek: int, single_base_max: int,
+                 mask_bits: int, stride: int = 1, n_words0: int = 0):
+    """uint8[B, n_g]: 1 where the e-kmer at grid offset (stride-1) +
+    stride*g passes the base-count filter, is not the zero k-mer, lies in
+    the read and hits both bloom bitmaps (get_exist_kmer)."""
+    B, L = codes.shape
+    dev = codes.device
+    n_g = _grid(L - lek + 1, stride)
+    c = codes.to(torch.int64)
+    p0 = stride - 1
+    valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
+    fail = torch.zeros((B, n_g), dtype=torch.bool, device=dev)
+    zero = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    for base in range(4):
+        is_b = ((c == base) & valid).to(torch.int32)
+        ps = torch.cat([zero, torch.cumsum(is_b, 1, dtype=torch.int32)], 1)
+        wc = _sub(ps, p0 + lek, stride, n_g) - _sub(ps, p0, stride, n_g)
+        fail |= wc >= single_base_max
+    hi = torch.zeros((B, n_g), dtype=torch.int64, device=dev)
+    lo = torch.zeros((B, n_g), dtype=torch.int64, device=dev)
+    for j in range(lek):
+        cc = _sub(c, p0 + j, stride, n_g)
+        hi = ((hi << 2) | (lo >> 30)) & u64.M32
+        lo = ((lo << 2) | cc) & u64.M32
+    keep = ~fail & ~((hi == 0) & (lo == 0))
+    hi, lo = hi.reshape(-1), lo.reshape(-1)
+    h1 = u64.and_mask_bits(u64.hash64_1((hi, lo)), mask_bits)
+    h2 = u64.and_mask_bits(u64.hash64_2((hi, lo)), mask_bits)
+    r1, r2 = _probe_both(w01, n_words0, h1, h2)
+    pos = p0 + stride * torch.arange(n_g, device=dev)
+    in_read = pos[None, :] + lek <= lengths[:, None]
+    hit = keep & r1.view(B, n_g) & r2.view(B, n_g) & in_read
+    return hit.to(torch.uint8)
+
+
+def kmer_lo26(codes, lek: int, stride: int = 1):
+    """int32[B, n_g]: the last 13 bases (hash13 prefix value, idx.h:59) of
+    the e-kmer at each grid offset, on _probe_reads' grid."""
+    B, L = codes.shape
+    n_g = _grid(L - lek + 1, stride)
+    p0 = stride - 1
+    c = codes.to(torch.int64)
+    lo = torch.zeros((B, n_g), dtype=torch.int64, device=codes.device)
+    for j in range(lek - 13, lek):
+        lo = (lo << 2) | _sub(c, p0 + j, stride, n_g)
+    return (lo & 0x3FFFFFF).to(torch.int32)

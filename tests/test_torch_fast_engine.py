@@ -1,0 +1,223 @@
+"""The torch port's fast classify path against the JAX package's, on the
+CPU: every stage output, the [7, Bp] result pack, FastResult tuples and
+stats on the golden reads, and the port's CLI. All values are integers,
+so the tolerance is exact equality everywhere."""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(ROOT, "tests", "golden")
+
+
+def _golden_reads(max_len=None, min_len=None):
+    from desamba_tpu.io.fastx import read_fastx
+
+    reads = [(r.name, r.seq, r.qual) for r in
+             read_fastx(os.path.join(GOLD, "reads.fq"))]
+    if max_len:
+        reads = [r for r in reads if len(r[1]) <= max_len]
+    if min_len:
+        reads = [r for r in reads if len(r[1]) >= min_len]
+    return reads
+
+
+@pytest.fixture(scope="module")
+def jax_cl(golden_oracle_index):
+    from desamba_tpu.engine.fast_engine import FastClassifier
+
+    return FastClassifier(golden_oracle_index)
+
+
+@pytest.fixture(scope="module")
+def torch_cl(golden_oracle_index):
+    from desamba_tpu_torch.engine.fast_engine import FastClassifier
+
+    return FastClassifier(golden_oracle_index, device="cpu")
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _eq(a, b, what):
+    a, b = _np(a), _np(b)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    assert (a == b).all(), (what, int((a != b).sum()))
+
+
+@pytest.fixture(scope="module", params=[1024, 2048])
+def chunk(request, jax_cl, torch_cl):
+    """One golden chunk at width bucket W through the JAX stages and the
+    port's stages, with every intermediate kept."""
+    from desamba_tpu.engine.fast_engine import (ROWS_PER_SEARCH, _band,
+                                                _build_stages, _read_words,
+                                                stage0_unpack)
+    from desamba_tpu_torch.engine import fast_engine as tfe
+
+    W = request.param
+    reads = _golden_reads(min_len=W // 2 + 1, max_len=W)
+    assert reads
+    packed, lens_p, _ = torch_cl._encode(reads, W=W)
+    ek = jax_cl.ek
+    js = _build_stages(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                       ek.n_words0)
+    ts = tfe.build_stages(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                          ek.n_words0)
+    out = {}
+    codes2, l2 = stage0_unpack(jnp.asarray(packed), jnp.asarray(lens_p))
+    tcodes2, tl2 = tfe.stage0_unpack(torch.from_numpy(packed),
+                                     torch.from_numpy(lens_p))
+    out["stage0"] = ((codes2, l2), (tcodes2, tl2))
+    s1 = jax.jit(js[0])(ek.w01, codes2, l2)
+    t1 = ts[0](torch_cl.ek.w01, tcodes2, tl2)
+    out["stage1"] = (s1, t1)
+    ci = codes2.astype(jnp.int32)
+    s2 = jax.jit(js[1])(jax_cl.fm, ci, l2, *s1[:3])
+    t2 = ts[1](torch_cl.fm, tcodes2.to(torch.int32), tl2, *t1[:3])
+    out["stage2"] = (s2, t2)
+    B2 = codes2.shape[0]
+    nwR = s1[1].shape[1] * ROWS_PER_SEARCH
+    s3 = jax.jit(js[2], static_argnames=("B2", "nwR"))(
+        jax_cl.fm, jax_cl.loc, l2, *s2, B2=B2, nwR=nwR)
+    t3 = ts[2](torch_cl.fm, torch_cl.loc, tl2, *t2, B2=B2, nwR=nwR)
+    out["stage3"] = (s3, t3)
+    K = 2 * _band(W) + 16
+    s4 = jax.jit(js[3], static_argnames=("B2", "K"))(
+        jax_cl.ra, _read_words(jnp.asarray(packed)), l2, *s3, B2=B2, K=K)
+    t4 = ts[3](torch_cl.ra, tfe._read_words(torch.from_numpy(packed)), tl2,
+               *t3, B2=B2, K=K)
+    out["stage4"] = (s4, t4)
+    out["packed"] = (packed, lens_p)
+    return out
+
+
+@pytest.mark.parametrize("stage", ["stage0", "stage1", "stage2", "stage3"])
+def test_stage_outputs_equal(chunk, stage):
+    ref, got = chunk[stage]
+    assert len(ref) == len(got)
+    for i, (a, b) in enumerate(zip(ref, got)):
+        _eq(a, b, f"{stage}[{i}]")
+
+
+def test_stage4_outputs_equal(chunk):
+    ref, got = chunk["stage4"]
+    assert set(ref) == set(got)
+    for k in ref:
+        _eq(ref[k], got[k], f"stage4[{k}]")
+
+
+def test_stage2_has_live_hits(chunk):
+    """The stage-2 comparison is not vacuous: the chunk yields anchors."""
+    _, got = chunk["stage2"]
+    assert int(got[1].sum()) > 0
+
+
+def test_full_pack_equal(chunk, jax_cl, torch_cl):
+    packed, lens_p = chunk["packed"]
+    ref = np.asarray(jax_cl._run(packed, lens_p))
+    got = np.asarray(torch_cl._run(packed, lens_p))
+    assert got.dtype == np.int32 and got.shape == (7, packed.shape[0])
+    _eq(ref, got, "pack")
+
+
+def _tuples(res):
+    return [(r.name, r.ref_ID, r.direction, r.score, r.read_len, r.pos)
+            for r in res]
+
+
+@pytest.mark.parametrize("fallback", [False, True])
+def test_fast_results_equal_on_golden_reads(jax_cl, torch_cl, fallback):
+    reads = _golden_reads()
+    jax_cl.exact_fallback = torch_cl.exact_fallback = fallback
+    jax_cl.stats = dict(n_reads=0, n_fallback=0)
+    torch_cl.stats = dict(n_reads=0, n_fallback=0)
+    try:
+        ref = jax_cl.classify_batch(reads)
+        got = torch_cl.classify_batch(reads)
+    finally:
+        jax_cl.exact_fallback = torch_cl.exact_fallback = True
+    assert _tuples(got) == _tuples(ref)
+    assert torch_cl.stats == jax_cl.stats
+    assert sum(r.ref_ID >= 0 for r in got) > len(got) // 2
+
+
+def test_long_read_block_partitioning_equal(golden_oracle_index):
+    """A >8 kb read split into max_width=2048 segments, both strands."""
+    from desamba_tpu.engine.fast_engine import FastClassifier as JaxFC
+    from desamba_tpu.io.fastx import read_fastx
+    from desamba_tpu_torch.engine.fast_engine import FastClassifier
+    from testdata import mutate_read
+
+    rng = np.random.default_rng(5)
+    genome = [r.seq for r in read_fastx(GOLD + "/ref.fa")][1]
+    code = np.zeros(256, np.uint8)
+    for j, b in enumerate(b"ACGT"):
+        code[b] = j
+    seq = mutate_read(rng, code[np.frombuffer(genome[1000:9400], np.uint8)],
+                      err=0.08)
+    comp = bytes(seq).translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
+    reads = [("long_fwd", seq, None), ("long_rc", comp, None)]
+    assert len(seq) > 8192
+    ref = JaxFC(golden_oracle_index, exact_fallback=False,
+                max_width=2048).classify_batch(reads)
+    got = FastClassifier(golden_oracle_index, exact_fallback=False,
+                         max_width=2048, device="cpu").classify_batch(reads)
+    assert _tuples(got) == _tuples(ref)
+    assert got[0].ref_ID == 1 and got[0].direction == 1
+    assert got[1].ref_ID == 1 and got[1].direction == 0
+
+
+def test_batch_padding_consistency(torch_cl):
+    """Results do not depend on batch composition (padding, bucketing)."""
+    reads = _golden_reads(max_len=250)[:5]
+    solo = [torch_cl.classify_batch([r])[0] for r in reads]
+    assert _tuples(torch_cl.classify_batch(reads)) == _tuples(solo)
+
+
+def test_device_is_required(golden_oracle_index):
+    from desamba_tpu_torch.engine.fast_engine import FastClassifier
+
+    with pytest.raises(TypeError):
+        FastClassifier(golden_oracle_index)
+    cl = FastClassifier(golden_oracle_index, device="cpu",
+                        tables=(None, _FakeEk(), None, None))
+    with pytest.raises(NotImplementedError):
+        cl._shard_stages(object())
+    with pytest.raises(NotImplementedError):
+        cl._run_mesh(None, None)
+
+
+class _FakeEk:
+    lek, single_base_max, mask_bits, n_words0 = 16, 12, 20, 0
+
+
+def test_cli_lines_match_jax_classifier(tmp_path, golden_index_dir, jax_cl):
+    """The port's CLI writes name, ref, direction, score and read length
+    per read, as the JAX CLI's fast engine does."""
+    reads = _golden_reads(max_len=250)[:6]
+    fq = tmp_path / "r.fq"
+    with open(fq, "w") as f:
+        for name, seq, _ in reads:
+            s = seq.decode()
+            f.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+    out = tmp_path / "out.txt"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    p = subprocess.run(
+        [sys.executable, "-m", "desamba_tpu_torch.cli", "classify",
+         "--device", "cpu", "-o", str(out), golden_index_dir, str(fq)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    names = jax_cl.oi.ref_names
+    exp = [f"{r.name}\t{names[r.ref_ID] if r.ref_ID >= 0 else '*'}\t"
+           f"{r.direction}\t{r.score}\t{r.read_len}"
+           for r in jax_cl.classify_batch(reads)]
+    assert out.read_text().splitlines() == exp
