@@ -5,28 +5,43 @@ card's time goes.
 
     python3 chip_smoke.py
 
+The script's own process imports torch, numpy and the port, never jax,
+the JAX package or bench.py (it asserts so at its end). The bench data is
+made from bench.py's recipe (100 Mbp community, seed 2024; 8,192 reads of
+1.2-3 kb at 10% error, seed 99; cached under build/bench_cache): building
+the index is the index-build workload, which the port does not cover
+yet, so a child process runs bench.prepare and writes the index in the C
+reference's on-disk format. This process only reads those files, with
+the port's own loader: the index's counterpart of loading a checkpoint
+that the reference wrote.
+
 Phases (any failure raises, and the script exits nonzero):
   1. the card (nvidia-smi name and power limit) and the software; nvcc
      builds the kernels (timed)
-  2. the bench's community index and reads (bench.prepare, cached under
-     build/bench_cache), the port's FastClassifier on "cuda"; the stages
-     run once on the first full chunk of the narrowest width bucket,
-     recording each kernel's inputs there, and each kernel is held
-     against its plain version on them: equal exactly, both timed with
-     CUDA events (median of 20); then one warm classify_batch
+  2. the bench data (child process), the port's index loader and
+     FastClassifier on "cuda"; the stages run once on the first full
+     chunk of the narrowest width bucket, recording each kernel's inputs
+     there, and each kernel is held against its plain version on them:
+     equal exactly, both timed with CUDA events (median of 20, L2
+     flushed before each call, as the path finds the tables cold), beside
+     the least time the card could take for the same work; then one warm
+     classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
-     (end-to-end reads/s, fallback fraction), counts read; then three
-     pure-device runs (reads/s) and bench.check_accuracy (device-vs-native
-     agreement, gated at 0.99 as bench.py gates it; truth accuracy)
+     (end-to-end reads/s, fallback fraction), counts read, and every
+     kernel must have launched; then three pure-device runs (reads/s) and
+     the device-vs-native agreement through the port's binding of the
+     native engine (gated at 0.99, bench.py's gate; truth accuracy)
   4. every read through a classifier running the plain versions
      (pure-device reads/s, three runs): FastResults identical to the
      kernel path's pure-device run
   5. where the time goes: for the first full chunk of each width bucket,
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
-     torch.profiler, per call, over 5 calls); then one pure-device
+     torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
+     and, for stage 1, the kernel's bound; then one pure-device
      classify_batch unprofiled and one under torch.profiler: device busy
-     share = kernel time over the unprofiled wall
+     share = kernel time over the unprofiled wall, and each hand kernel's
+     device time per launch as the path runs it
 Prints a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
@@ -40,11 +55,27 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CACHE = os.path.join(ROOT, "build", "bench_cache")
 SCALE_BP = 100e6      # bench.py's community size
 N_READS = 8192        # bench.py's read count
 BLOCK = 4096          # bench.py's chunk size
 AGREE_MIN = 0.99      # bench.py's accuracy gate
+# NVIDIA H100 SXM peaks (datasheet): HBM bytes a
+# second; int32 operations a second, a quarter of the 67 TFLOP/s float32
+# rate, which counts an FMA as two on 128 lanes an SM where int32 has 64
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+SECTOR = 32           # bytes a random device-memory read moves at least
+L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
+# the CUDA function each kernel launches (its profiler rows)
+GLOBAL = {
+    "stage1": "stage1_kernel",
+    "interval_search": "interval_search_kernel",
+    "row_walks": "row_walks_kernel",
+    "band_score_packed": "band_score_kernel",
+}
 REPLACES = {
+    "stage1": "desamba_tpu/engine/fast_engine.py:203",
     "interval_search": "desamba_tpu/ops/fm.py:165",
     "row_walks": "desamba_tpu/ops/fm.py:261",
     "band_score_packed": "desamba_tpu/ops/matchblock.py:201",
@@ -89,6 +120,8 @@ def software() -> dict:
 def max_abs_err(x, y) -> int:
     import torch
 
+    if isinstance(x, tuple):
+        return max(max_abs_err(a, b) for a, b in zip(x, y, strict=True))
     if isinstance(x, dict):
         if set(x) != set(y):
             raise AssertionError(f"outputs {sorted(x)} vs {sorted(y)}")
@@ -98,17 +131,21 @@ def max_abs_err(x, y) -> int:
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
 
 
-def cuda_ms(fn, n: int = 10) -> float:
+def cuda_ms(fn, n: int = 10, cold: bool = False) -> float:
     """Median ms of n calls of fn, CUDA events around each (after one
-    untimed call)."""
+    untimed call); cold: L2 evicted before each call, outside the events."""
     import statistics
 
     import torch
 
     fn()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device="cuda") if cold else None
     torch.cuda.synchronize()
     ts = []
     for _ in range(n):
+        if cold:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -151,7 +188,7 @@ def device_ms(fn, n: int = 5):
 def first_chunks(cl, reads) -> dict:
     """{W: (packed, lens, n_reads)}: the first full chunk of each width
     bucket, encoded as classify_batch encodes it."""
-    from desamba_tpu.engine.fast_engine import _bucket
+    from desamba_tpu_torch.constants import _bucket
 
     by_w: dict = {}
     for r in reads:
@@ -164,13 +201,14 @@ def first_chunks(cl, reads) -> dict:
     return out
 
 
-def stage_calls(cl, packed, lens, ops) -> dict:
-    """Run stages 0-4 once on an encoded chunk; returns {stage: fn}, each
-    fn calling one stage on the saved output of the stage before it, and
-    "fused" calling the whole pipeline."""
+def stage_calls(cl, packed, lens, ops):
+    """Run stages 0-4 once on an encoded chunk. Returns ({stage: fn},
+    (stage 1's kernel arguments, its output)): each fn calls one stage on
+    the saved output of the stage before it, "fused" the whole
+    pipeline."""
     import torch
 
-    from desamba_tpu.engine.fast_engine import ROWS_PER_SEARCH, _band
+    from desamba_tpu_torch.constants import ROWS_PER_SEARCH, _band
     from desamba_tpu_torch.engine import fast_engine as tfe
 
     ek = cl.ek
@@ -187,7 +225,8 @@ def stage_calls(cl, packed, lens, ops) -> dict:
     o3 = s3(cl.fm, cl.loc, l2, *o2, B2=B2, nwR=nwR)
     rw = tfe._read_words(p)
     K = 2 * _band(W) + 16
-    return {
+    o4 = s4(cl.ra, rw, l2, *o3, B2=B2, K=K)
+    fns = {
         "0 unpack": lambda: tfe.stage0_unpack(p, ln),
         "1 probe+seeds": lambda: s1(ek.w01, codes2, l2),
         "2 FM search+walks": lambda: s2(cl.fm, ci, l2, *o1[:3]),
@@ -195,6 +234,9 @@ def stage_calls(cl, packed, lens, ops) -> dict:
         "4 band rescore": lambda: s4(cl.ra, rw, l2, *o3, B2=B2, K=K),
         "fused": lambda: cl._full(cl.fm, cl.loc, cl.ra, ek.w01, p, ln),
     }
+    s1_io = ((ek.w01, codes2, l2, ek.lek, ek.single_base_max, ek.mask_bits,
+              ek.n_words0), o1)
+    return fns, s1_io
 
 
 def kernel_inputs(cl, packed, lens) -> dict:
@@ -210,9 +252,65 @@ def kernel_inputs(cl, packed, lens) -> dict:
             return fn(*args)
         return call
 
-    ops = tuple(recording(k, f) for k, f in zip(kernels.KERNELS, KERNEL_OPS))
-    stage_calls(cl, packed, lens, ops)["4 band rescore"]()
+    stage_calls(cl, packed, lens,
+                {k: recording(k, KERNEL_OPS[k]) for k in kernels.KERNELS})
     return cap
+
+
+def work(name: str, args, out) -> tuple[int, int]:
+    """(bytes, int32 operations) the kernel's function needs on these
+    inputs: each streamed input read once and each output written once,
+    plus 32-byte sectors of the tables this run's data reads (counted
+    from the inputs and outputs)."""
+    import torch
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    if name == "stage1":
+        from desamba_tpu_torch.constants import STEP_EK
+        from desamba_tpu_torch.ops.ekmer import _probe_addrs
+
+        w01, codes2, l2, lek, sbm, mb, nw0 = args
+        # the distinct bitmap sectors the probes need, each moved once (a
+        # sector read again can come from L2): bitmap 1 at every point
+        # that passes the filter and lies in the read, bitmap 2 only
+        # where bitmap 1's bit is set
+        want, (wi1, sh1), (wi2, _) = _probe_addrs(codes2, l2, lek, sbm, mb,
+                                                   stride=STEP_EK)
+        m = want.reshape(-1)
+        wi1 = wi1[m]
+        set1 = ((w01[wi1].to(torch.int64) >> sh1[m]) & 1).bool()
+        words = torch.cat([wi1, wi2[m][set1] + nw0])
+        sectors = torch.unique(words // (SECTOR // 4)).numel()
+        grid = out[0].numel()
+        return (nbytes(codes2, l2, *out) + SECTOR * sectors,
+                grid * (4 * lek + 70))
+    if name == "interval_search":
+        fm, codes, lanes, max_rst, l_min, l_max, state, _ = args
+        steps = int((state[5] - out[5]).sum(dtype=torch.int64))
+        # two occ words (one sector each) and a read code a step
+        return (nbytes(lanes, max_rst, l_min, l_max, state, out)
+                + steps * (2 * SECTOR + 4), steps * 40)
+    if name == "row_walks":
+        fm, codes, lanes, max_lens, state, _ = args
+        reads = int((out[2] - state[2]).sum(dtype=torch.int64)
+                    + (out[3] & ~state[3]).sum(dtype=torch.int64))
+        return (nbytes(lanes, max_lens, state, out) + reads * (SECTOR + 4),
+                reads * 20)
+    read_w, rlen, win_w, rel_lo, rel_hi, K = args
+    # ~25 int32 operations per (row, read word, band offset): the SWAR
+    # compare, masks and the 9-code run test
+    return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
+            read_w.numel() * K * 25)
+
+
+def bound(name: str, args, out) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for the same work, the larger of the two."""
+    b, ops = work(name, args, out)
+    t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def check_kernels(cap: dict) -> dict:
@@ -223,6 +321,8 @@ def check_kernels(cap: dict) -> dict:
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
     shapes = {
+        "stage1": lambda a: (f"rows={a[1].shape[0]} W={a[1].shape[1]} "
+                             f"lek={a[3]} mask_bits={a[5]}"),
         "interval_search": lambda a: (f"n={a[6].shape[1]} "
                                       f"W={a[1].shape[1]} steps={a[7]}"),
         "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
@@ -230,7 +330,8 @@ def check_kernels(cap: dict) -> dict:
                                         f"W={16 * a[0].shape[1]} K={a[5]}"),
     }
     out = {}
-    for name, kern, plain in zip(kernels.KERNELS, KERNEL_OPS, PLAIN_OPS):
+    for name in kernels.KERNELS:
+        kern, plain = KERNEL_OPS[name], PLAIN_OPS[name]
         args = cap[name]
         shape = shapes[name](args)
         got = kern(*args)
@@ -240,29 +341,34 @@ def check_kernels(cap: dict) -> dict:
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max abs err {err}) at {shape}")
-        ms = cuda_ms(lambda: kern(*args), 20)
-        plain_ms = cuda_ms(lambda: plain(*args), 20)
+        ms = cuda_ms(lambda: kern(*args), 20, cold=True)
+        plain_ms = cuda_ms(lambda: plain(*args), 20, cold=True)
+        bound_ms, bound_by = bound(name, args, ref)
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         shape=shape)
+                         bound_ms=bound_ms, bound_by=bound_by, shape=shape)
         log(f"smoke: {name} [{shape}] equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     return out
 
 
 def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
     """Per-stage event span and device time on each bucket's first full
-    chunk; device busy share of one pure-device classify_batch."""
+    chunk; device busy share of one pure-device classify_batch, and each
+    hand kernel's device time per launch in it."""
     import torch
 
+    from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
 
     stages = {}
     for W, (packed, lens, n_chunk) in chunks.items():
         row = {}
-        for name, fn in stage_calls(cl, packed, lens, KERNEL_OPS).items():
+        fns, s1_io = stage_calls(cl, packed, lens, KERNEL_OPS)
+        for name, fn in fns.items():
             dev, nk = device_ms(fn)
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
+        row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
         stages[f"W={W} ({n_chunk} reads)"] = row
     cl.exact_fallback = False
     torch.cuda.synchronize()
@@ -284,15 +390,65 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
     top = [dict(ms=e.self_device_time_total / 1e3, count=e.count,
                 kernel=e.key[:90])
            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]]
+    on_path = {}
+    for name in kernels.KERNELS:
+        rows = [e for e in ev if GLOBAL[name] in e.key]
+        ms = sum(e.self_device_time_total for e in rows) / 1e3
+        count = sum(e.count for e in rows)
+        on_path[name] = dict(ms=ms, launches=count,
+                             ms_per_launch=ms / max(1, count))
     return dict(card=card, stages=stages, batch=dict(
         reads=len(reads), wall_ms_unprofiled=wall * 1e3,
         wall_ms_profiled=box["wall"] * 1e3, device_ms=busy * 1e3,
-        device_busy_share=busy / wall, top_kernels=top))
+        device_busy_share=busy / wall, top_kernels=top,
+        hand_kernels=on_path))
+
+
+def make_data() -> tuple[str, str]:
+    """(reads FASTQ, index directory) of the bench data, made once under
+    CACHE by bench.prepare in a child process."""
+    code = ("import json, sys, bench\n"
+            "bench.CACHE, bench.SCALE_BP, bench.N_READS = sys.argv[1], "
+            "int(float(sys.argv[2])), int(sys.argv[3])\n"
+            "print(json.dumps(bench.prepare()))\n")
+    p = subprocess.run([sys.executable, "-c", code, CACHE, str(SCALE_BP),
+                        str(N_READS)], cwd=ROOT, capture_output=True,
+                       text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"bench.prepare failed:\n{p.stderr[-4000:]}")
+    log(p.stderr.strip())
+    _fa, fq, idx_dir = json.loads(p.stdout.strip().splitlines()[-1])
+    return fq, idx_dir
+
+
+def truth_tid(name: str) -> int:
+    """The simulated source taxon in a bench read's name (bench.py:58)."""
+    return int(name.split("_")[1].split(".")[0])
+
+
+def agreement(cl, reads, res) -> float:
+    """Share of reads whose taxon equals the native engine's primary hit's
+    (the logic of bench.check_accuracy over all reads)."""
+    from desamba_tpu_torch.engine.native import NativeClassifier
+
+    nat = NativeClassifier(cl.idx, n_threads=os.cpu_count() or 1)
+    t0 = time.time()
+    nres = nat.classify_batch(reads)
+    dt = time.time() - t0
+    nt = [cl.tid_of(next((h.ref_ID for h in r.hits if h.primary == 1), -1))
+          for r in nres]
+    agree = sum(cl.tid_of(r.ref_ID) == t for r, t in zip(res, nt)) / len(
+        reads)
+    acc_n = sum(t == truth_tid(r[0]) for r, t in zip(reads, nt)) / len(reads)
+    log(f"smoke: native engine {len(reads)} reads in {dt:.1f} s; "
+        f"agreement {agree:.4f}, native truth accuracy {acc_n:.4f}")
+    return agree
 
 
 def main() -> int:
     if not (os.path.isdir(os.path.join(ROOT, "desamba_tpu_torch"))
-            and os.path.isfile(os.path.join(ROOT, "bench.py"))):
+            and os.path.isfile(os.path.join(ROOT, "bench.py"))
+            and os.path.isdir(os.path.join(ROOT, "native"))):
         log("chip_smoke: not inside a checkout of the repository")
         return 2
     import torch
@@ -318,31 +474,27 @@ def main() -> int:
         regs = [ln.strip() for ln in d["log"].splitlines()
                 if "registers" in ln]
         log(f"smoke: {name}: {' | '.join(regs) or d['log'][:200]}")
-    subprocess.run(["make", "-C", os.path.join(ROOT, "native"),
-                    "libdesamba_host.so"], check=True, capture_output=True)
+    from desamba_tpu_torch.engine.native import ensure_built
+
+    ensure_built()
 
     # ---- phase 2: data, classifier, kernel-vs-plain checks
-    import bench
-    from desamba_tpu.index.format_ref import RefFormatIndex
-    from desamba_tpu.io.fastx import read_fastx
-    from desamba_tpu.oracle.classify import OracleIndex
     from desamba_tpu_torch.engine.fast_engine import FastClassifier
+    from desamba_tpu_torch.index.loader import load_index
+    from desamba_tpu_torch.io.fastx import read_fastx
 
-    bench.CACHE = os.path.join(ROOT, "build", "bench_cache")
-    bench.SCALE_BP = int(SCALE_BP)
-    bench.N_READS = N_READS
     t0 = time.time()
-    _fa, fq, idx_dir = bench.prepare()
+    fq, idx_dir = make_data()
     t_data = time.time() - t0
     t0 = time.time()
-    oi = OracleIndex(RefFormatIndex(idx_dir))
-    cl = FastClassifier(oi, device="cuda")
+    idx = load_index(idx_dir)
+    cl = FastClassifier(idx, device="cuda")
     torch.cuda.synchronize()
     t_init = time.time() - t0
     reads = [(r.name, r.seq, r.qual) for r in read_fastx(fq)]
     n = len(reads)
-    print(f"data {bench.SCALE_BP / 1e6:.1f} Mbp, L={oi.L}, "
-          f"{len(oi.ref_names)} genomes, {n} reads: prepare {t_data:.1f} s, "
+    print(f"data {SCALE_BP / 1e6:.1f} Mbp, L={idx.L}, "
+          f"{len(idx.ref_names)} genomes, {n} reads: prepare {t_data:.1f} s, "
           f"index load + tables on device {t_init:.1f} s", flush=True)
 
     chunks = first_chunks(cl, reads)
@@ -378,12 +530,12 @@ def main() -> int:
         torch.cuda.synchronize()
         rates_dev.append(n / (time.time() - t0))
     cl.exact_fallback = True
-    agree = bench.check_accuracy(cl, reads, res)
-    truth = [bench.truth_tid(r[0]) for r in reads]
+    agree = agreement(cl, reads, res)
+    truth = [truth_tid(r[0]) for r in reads]
     acc = sum(cl.tid_of(r.ref_ID) == t for r, t in zip(res, truth)) / n
     acc_dev = sum(cl.tid_of(r.ref_ID) == t
                   for r, t in zip(res_dev, truth)) / n
-    summary = dict(card=card, reads=n, scale_mbp=bench.SCALE_BP / 1e6,
+    summary = dict(card=card, reads=n, scale_mbp=SCALE_BP / 1e6,
                    block=BLOCK, e2e_reads_per_s=rates,
                    e2e_reads_per_s_best=max(rates),
                    device_reads_per_s=rates_dev,
@@ -402,7 +554,7 @@ def main() -> int:
         raise AssertionError(f"{len(bad)} malformed results, e.g. {bad[0]}")
 
     # ---- phase 4: kernel path == plain path, and what the kernels buy
-    plain_cl = FastClassifier(oi, device="cuda", plain=True,
+    plain_cl = FastClassifier(idx, device="cuda", plain=True,
                               exact_fallback=False,
                               tables=(cl.fm, cl.ek, cl.loc, cl.ra))
     rates_plain = []
@@ -424,23 +576,30 @@ def main() -> int:
           flush=True)
 
     # ---- phase 5: where the time goes
-    print("time " + json.dumps(where_time_goes(cl, chunks, reads, card)),
-          flush=True)
+    tg = where_time_goes(cl, chunks, reads, card)
+    print("time " + json.dumps(tg), flush=True)
+    on_path = tg["batch"]["hand_kernels"]
 
-    jax_mods = [m for m in sys.modules if m == "jax" or m.startswith(
-        ("jax.", "jaxlib", "desamba_tpu.ops"))]
-    if jax_mods:
-        raise AssertionError(f"jax modules were imported: {jax_mods[:5]}")
     rows = [dict(name=k, route="cuda", source=kernels.source_path(k),
                  replaces=REPLACES[k], launches=launches[k],
                  max_abs_err=checks[k]["max_abs_err"], ms=checks[k]["ms"],
-                 plain_ms=checks[k]["plain_ms"], shape=checks[k]["shape"])
+                 plain_ms=checks[k]["plain_ms"],
+                 bound_ms=checks[k]["bound_ms"],
+                 bound_by=checks[k]["bound_by"], library_ms=None,
+                 path_ms=on_path[k]["ms_per_launch"],
+                 shape=checks[k]["shape"])
             for k in kernels.KERNELS]
+    foreign = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "desamba_tpu",
+                                      "bench")]
+    if foreign:
+        raise AssertionError(f"the smoke imported {foreign[:5]}")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    # the one card this run used
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -11,10 +11,34 @@ device pipeline and writes results.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import queue
 import sys
 import threading
 import time
+
+
+class SectionTimes:
+    """Wall seconds and entries per named section (the FUNC_GET_TIME
+    analog, lib/utils.h:124-152; desamba_tpu/utils/timers.SectionTimes)."""
+
+    def __init__(self):
+        self.times: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.time()
+        try:
+            yield
+        finally:
+            self.times[name] = self.times.get(name, 0.0) + time.time() - t0
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self, file=None) -> None:
+        for name, t in sorted(self.times.items(), key=lambda kv: -kv[1]):
+            print(f"{name}:[{t:f}] n={self.counts[name]}",
+                  file=file or sys.stderr)
 
 
 def cmd_classify(argv):
@@ -29,18 +53,15 @@ def cmd_classify(argv):
                     help="print per-stage wall timers")
     a = ap.parse_args(argv)
 
-    from desamba_tpu.constants import N_NEEDED
-    from desamba_tpu.index.format_ref import RefFormatIndex
-    from desamba_tpu.io.fastx import read_fastx
-    from desamba_tpu.oracle.classify import OracleIndex
-    from desamba_tpu.utils.timers import SectionTimes
-
+    from .constants import N_NEEDED
     from .engine.fast_engine import FastClassifier
+    from .index.loader import load_index
+    from .io.fastx import read_fastx
 
     out = open(a.o, "w") if a.o else sys.stdout
     st = SectionTimes()
     t0 = time.time()
-    idx = OracleIndex(RefFormatIndex(a.index_dir))
+    idx = load_index(a.index_dir)
     eng = FastClassifier(idx, min_score=a.s, device=a.device)
     q: "queue.Queue" = queue.Queue(maxsize=4)
 

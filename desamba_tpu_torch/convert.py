@@ -1,12 +1,12 @@
 """The port's device tables, built from an index or carried across from
 the JAX package's tables.
 
-`build_tables` builds (FmArrays, EkArrays, LocArrays, RefArrays) from a
-TensorIndex (desamba_tpu.index.tensor_index.from_oracle_index, which is
-numpy only). `tables_from_jax` takes the JAX package's FmArrays,
-EkArrays, LocArrays and RefArrays — anything whose leaves np.asarray can
-read, with the same attribute names — and returns the same four port
-tables on a device. Both routes give equal arrays.
+`build_tables` builds (FmArrays, EkArrays, LocArrays, RefArrays) from the
+port's HostIndex (index.loader.load_index). `tables_from_jax` takes the
+JAX package's FmArrays, EkArrays, LocArrays and RefArrays — anything
+whose leaves np.asarray can read, with the same attribute names — and
+returns the same four port tables on a device. Both routes give equal
+arrays.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from .ops.refwin import RefArrays
 
 def build_tables(ti, device="cpu", fold_bits="auto"):
     """(FmArrays, EkArrays, LocArrays, RefArrays) on `device` from a
-    TensorIndex. fold_bits="auto" folds big exist filters as the JAX
+    HostIndex. fold_bits="auto" folds big exist filters as the JAX
     FastClassifier does."""
     return (FmArrays.from_tensor_index(ti, device),
             EkArrays.from_tensor_index(ti, device, fold_bits=fold_bits),

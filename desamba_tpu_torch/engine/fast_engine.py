@@ -4,7 +4,8 @@ Counterpart of desamba_tpu/engine/fast_engine.py. The stages are the JAX
 package's, step for step, with the same static schedule and caps:
 
   stage0  2-bit unpack of the per-read fwd|rc packed rows
-  stage1  exist-filter probe + per-window top seed (ops/ekmer, ops/seeds)
+  stage1  exist-filter probe + per-window top seed (ops/seeds.stage1, a
+          hand CUDA kernel)
   stage2  FM backward interval search from the hash13 head start and the
           per-row LF walks, each as burst / compact / resume (ops/fm; the
           two loops are hand CUDA kernels)
@@ -16,40 +17,45 @@ Every stage is integer-only, so a stage's output equals the JAX stage's
 element for element. Where JAX clamps an out-of-range gather index or
 drops an out-of-range scatter, the code here clamps or pads explicitly.
 
-`FastClassifier` subclasses the JAX package's class and overrides only
-__init__, _run, _shard_stages and _run_mesh: the gate, width bucketing,
-long-read block partitioning, result formatting and the exact native
-replay of ambiguous reads are inherited unchanged.
+`FastClassifier` is the host side of the JAX package's classifier, method
+for method: the gate, width bucketing, long-read block partitioning,
+result formatting and the exact native replay of ambiguous reads.
 """
 from __future__ import annotations
 
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from desamba_tpu.constants import (DEFAULT_FILTER_MIN_LENGTH,
-                                   DEFAULT_MIN_SCORE, SEED_RANGE, STEP_EK)
-from desamba_tpu.engine import fast_engine as _ref
-from desamba_tpu.engine.fast_engine import (
-    AMB_LARGE_L, AMB_MARGIN, AMB_MARGIN_LARGE, FM_EXT_CAP, IV_BURST, IV_MID,
-    PACK_KEYS, REFPOS_PER_ANCHOR, ROWS_PER_SEARCH, VOTE_TILE, WALK_BURST,
-    WALK_MID, WALK_TAIL, _band)
-
-from ..ops.ekmer import _probe_reads, kmer_lo26
+from ..constants import (AMB_LARGE_L, AMB_MARGIN, AMB_MARGIN_LARGE,
+                         AMB_MIN_EXIST, DEFAULT_FILTER_MIN_LENGTH,
+                         DEFAULT_MIN_SCORE, FILTER_MIN_SCORE_2G,
+                         FILTER_MIN_SCORE_SHORT_3G, FM_EXT_CAP, IV_BURST,
+                         IV_MID, LONG_OVERLAP, NGS_MAX_READ_L, PACK_KEYS,
+                         REFPOS_PER_ANCHOR, ROWS_PER_SEARCH, SHORT_3G_READ_L,
+                         STEP_EK, VOTE_TILE, WALK_BURST, WALK_MID, WALK_TAIL,
+                         _band, _bucket, _pow2)
 from ..ops.fm import (interval_search_plain, interval_search_state, iv_init,
                       row_walks_plain, row_walks_state, rw_init)
 from ..ops.locate import expand_refpos, resolve_rows
 from ..ops.matchblock import band_score_packed, band_score_packed_plain
-from ..ops.seeds import top_seeds
+from ..ops.seeds import stage1 as stage1_op
+from ..ops.seeds import stage1_plain
 
 I32 = torch.int32
-# the (interval search, row walks, band score) functions the stages call:
-# the wrappers, which launch the hand kernels on CUDA tensors, or their
-# plain torch versions on any device (to check the kernel path)
-KERNEL_OPS = (interval_search_state, row_walks_state, band_score_packed)
-PLAIN_OPS = (interval_search_plain, row_walks_plain, band_score_packed_plain)
+# the functions the stages call, by kernel name (kernels.KERNELS): the
+# wrappers, which launch the hand kernels on CUDA tensors, or their plain
+# torch versions on any device (to check the kernel path)
+KERNEL_OPS = dict(stage1=stage1_op, interval_search=interval_search_state,
+                  row_walks=row_walks_state,
+                  band_score_packed=band_score_packed)
+PLAIN_OPS = dict(stage1=stage1_plain, interval_search=interval_search_plain,
+                 row_walks=row_walks_plain,
+                 band_score_packed=band_score_packed_plain)
 
 
 def stage0_unpack(packed: torch.Tensor, lens: torch.Tensor):
@@ -99,15 +105,12 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                  nw0: int = 0, ops=KERNEL_OPS):
     """Returns (stage1, stage2, stage3, stage4) closed over the static
     exist-filter parameters; `ops` is KERNEL_OPS or PLAIN_OPS."""
-    iv, rw, bsp = ops
+    s1, iv, rw, bsp = (ops[k] for k in ("stage1", "interval_search",
+                                         "row_walks", "band_score_packed"))
 
     def stage1(w01, codes2, lengths2):
-        ex = _probe_reads(w01, codes2, lengths2, lek, sbm, mask_bits,
-                          stride=STEP_EK, n_words0=nw0)
-        lo26 = kmer_lo26(codes2, lek, stride=STEP_EK)
-        kidx, runlen = top_seeds(ex, SEED_RANGE // STEP_EK)
-        n_exist = ex.sum(1, dtype=I32)
-        return lo26, kidx, runlen, n_exist
+        """(lo26, kidx, runlen, n_exist) of the STEP_EK probe grid."""
+        return s1(w01, codes2, lengths2, lek, sbm, mask_bits, nw0)
 
     def stage2(fm, codes_i, lengths2, lo26, kidx, runlen):
         B2, W = codes_i.shape
@@ -345,7 +348,7 @@ def build_full(lek: int, sbm: int, mask_bits: int, min_match: int,
 
 class DeviceResult:
     """A chunk's [7, Bp] int32 result on the device; np.asarray copies it
-    to the host (the inherited drain calls np.asarray on it)."""
+    to the host."""
 
     def __init__(self, t: torch.Tensor):
         self.t = t
@@ -355,30 +358,69 @@ class DeviceResult:
         return a if dtype is None else a.astype(dtype, copy=False)
 
 
-class FastClassifier(_ref.FastClassifier):
-    """The JAX package's FastClassifier with its device program run by
-    torch on `device` (required: "cuda", "cuda:N" or "cpu"; never chosen
-    for the caller). On a CUDA device the three hand kernels run; on the
-    CPU, their plain versions. plain=True runs the plain versions on any
-    device."""
+@dataclass
+class FastResult:
+    name: str
+    ref_ID: int      # -1 = unclassified
+    direction: int
+    score: int       # band-MEM score (reference sum_score scale)
+    read_len: int
+    pos: int = -1    # 0-based position in the reference (approximate)
 
-    def __init__(self, oi, min_score: int = DEFAULT_MIN_SCORE,
+
+def _score_threshold(read_len: int, filter_min_score: int,
+                     filter_min_length: int) -> tuple[int, int]:
+    """(thr, long_thr) of the reference's final filter ladder
+    (delete_small_score_rst, cly.c:2955-2981): a read is kept if score' >=
+    thr, or, for long reads, if score' >= filter_min_score and coverage >=
+    filter_min_length (score' = sum_score + (cov >> 5))."""
+    if read_len < SHORT_3G_READ_L:
+        return FILTER_MIN_SCORE_SHORT_3G, 0
+    if read_len < NGS_MAX_READ_L:
+        return FILTER_MIN_SCORE_2G, 0
+    return filter_min_score + 10, filter_min_score
+
+
+def _unpack_rows(arr: np.ndarray, B: int) -> dict:
+    """Inverse of the device-side [7, Bp] pack."""
+    res = {k: arr[i, :B] for i, k in enumerate(PACK_KEYS)}
+    res["n_exist"] = arr[6, :B]
+    return res
+
+
+class FastClassifier:
+    """Resident-index batched classifier on one torch `device` ("cuda",
+    "cuda:N" or "cpu"; required, never chosen for the caller). On a CUDA
+    device the hand kernels run; on the CPU, their plain versions.
+    plain=True runs the plain versions on any device.
+
+    `idx` is a HostIndex (index.loader.load_index). Reads are called by
+    the reference's final-filter thresholds on the stage-4 band score.
+    With exact_fallback=True, reads the device pipeline cannot call
+    unambiguously (near-tied cross-genome scores, threshold-border
+    scores, exist-filter seeds without anchors) are replayed through the
+    bit-exact native engine, as the reference splits fast_classify and
+    slow_classify (cly.c:3098-3122); .stats counts the replays."""
+
+    def __init__(self, idx, min_score: int = DEFAULT_MIN_SCORE,
                  filter_min_length: int = DEFAULT_FILTER_MIN_LENGTH,
                  mesh=None, exact_fallback: bool = True,
                  fallback_threads: int | None = None,
                  max_width: int = 8192, amb_margin: int | None = None, *,
                  device, plain: bool = False, tables=None):
-        from desamba_tpu.index.tensor_index import from_oracle_index
-
         from ..convert import build_tables
 
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU data parallel is not ported yet (ROADMAP queue 1 "
+                "item 9)")
         if amb_margin is None:
-            amb_margin = (AMB_MARGIN if oi.L < AMB_LARGE_L
+            amb_margin = (AMB_MARGIN if idx.L < AMB_LARGE_L
                           else AMB_MARGIN_LARGE)
         self.device = torch.device(device)
-        self.oi = oi
+        self.idx = idx
         if tables is None:
-            tables = build_tables(from_oracle_index(oi), self.device)
+            tables = build_tables(idx, self.device)
         self.fm, self.ek, self.loc, self.ra = tables
         self.min_score = min_score
         self.filter_min_length = filter_min_length
@@ -391,15 +433,12 @@ class FastClassifier(_ref.FastClassifier):
             self._code[b] = j
         for j, b in enumerate(b"acgt"):
             self._code[b] = j
-        self.mesh = mesh
-        if mesh is not None:
-            self._shard_stages(mesh)
         self.exact_fallback = exact_fallback
         self.amb_margin = amb_margin
         self.max_width = max_width
         self._fallback_threads = fallback_threads or min(
             8, os.cpu_count() or 1)
-        self._native = None  # built lazily on first ambiguous read
+        self._native = None  # built on the first ambiguous read
         self._replay_lock = threading.Lock()
         self.stats = dict(n_reads=0, n_fallback=0)
 
@@ -409,12 +448,268 @@ class FastClassifier(_ref.FastClassifier):
         return DeviceResult(self._full(self.fm, self.loc, self.ra,
                                        self.ek.w01, p, ln))
 
-    def _shard_stages(self, mesh):
-        raise NotImplementedError(
-            "multi-GPU data parallel is not ported yet (ROADMAP queue 1 "
-            "item 9)")
+    # ------------------------------------------------------------ encode --
+    def _encode(self, reads, W: int | None = None, Bp: int | None = None):
+        """Encode into the 2-bit wire format (stage0_unpack) at width W and
+        row count Bp (default: the reads' width bucket and the next power
+        of two). Returns (packed uint8[Bp, W//2], lens_p int32[Bp], lens
+        int32[B]): per read row, forward codes then reverse-complement
+        codes, 4 codes a byte, LSB first."""
+        lens = np.array([len(r[1]) for r in reads], np.int32)
+        if W is None:
+            W = _bucket(max(int(lens.max()), self.ek.lek + 2))
+        B = len(reads)
+        if Bp is None:
+            Bp = _pow2(B, 8)
+        flat = self._code[np.frombuffer(
+            b"".join(r[1] for r in reads), np.uint8)]
+        inv = 3 - flat
+        off = np.concatenate([[0], np.cumsum(lens, dtype=np.int64)])
+        codes = np.zeros((Bp, 2 * W), np.uint8)
+        # a contiguous copy per read row beats one 2D fancy scatter
+        for i in range(B):
+            o0, o1 = off[i], off[i + 1]
+            codes[i, : o1 - o0] = flat[o0:o1]
+            codes[i, W : W + o1 - o0] = inv[o0:o1][::-1]
+        packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
+                  | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+        lens_p = np.zeros(Bp, np.int32)
+        lens_p[:B] = lens
+        return packed, lens_p, lens
 
-    def _run_mesh(self, packed, lens):
-        raise NotImplementedError(
-            "multi-GPU data parallel is not ported yet (ROADMAP queue 1 "
-            "item 9)")
+    # ---------------------------------------------------------- classify --
+    def classify_batch(self, reads, block: int = 512) -> list[FastResult]:
+        """Pipelined batch classify (the kt_pipeline analog,
+        lib/kthread.c:157-197): chunk i+1 is encoded and launched before
+        chunk i is drained and formatted, and ambiguous reads are replayed
+        on a worker thread while later chunks compute. Reads are grouped
+        by width bucket; full chunks have `block` rows, a partial tail its
+        own power of two."""
+        out: list = [None] * len(reads)
+        by_bucket: dict[int, list[int]] = {}
+        long_ids: list[int] = []
+        for i, r in enumerate(reads):
+            if len(r[1]) > self.max_width:
+                long_ids.append(i)  # block-partitioned below
+                continue
+            Wb = _bucket(max(len(r[1]), self.ek.lek + 2))
+            by_bucket.setdefault(Wb, []).append(i)
+        pending: list = []
+        # the native engine releases the GIL, so a chunk's replays run
+        # while the next chunks compute on the device
+        replay_ex = ThreadPoolExecutor(max_workers=1) \
+            if self.exact_fallback else None
+        replay_futs: list = []
+
+        def drain():
+            sub, chunk, lens, handles = pending.pop(0)
+            res = _unpack_rows(np.asarray(handles), len(chunk))
+            frs, replay = self._format(chunk, lens, res)
+            for j, fr in zip(sub, frs):
+                out[j] = fr
+            if replay:
+                idxs = [sub[k] for k, _ in replay]
+                rds = [r for _, r in replay]
+                replay_futs.append(
+                    (idxs, replay_ex.submit(self._replay, rds)))
+
+        try:
+            for Wb in sorted(by_bucket):
+                ids = by_bucket[Wb]
+                for s0 in range(0, len(ids), block):
+                    sub = ids[s0 : s0 + block]
+                    chunk = [reads[i] for i in sub]
+                    Bp = block if len(sub) == block else _pow2(len(sub), 8)
+                    handles, lens = self._dispatch_chunk(chunk, Wb, Bp)
+                    pending.append((sub, chunk, lens, handles))
+                    while len(pending) > 1:
+                        drain()
+            while pending:
+                drain()
+            if long_ids:
+                self._classify_long(reads, long_ids, out, block)
+            for idxs, fut in replay_futs:
+                for i, fr in zip(idxs, fut.result()):
+                    out[i] = fr
+        finally:
+            if replay_ex is not None:
+                replay_ex.shutdown(wait=True)
+        return out
+
+    # ------------------------------------------------- very long reads --
+    # A read longer than max_width is cut into max_width segments that
+    # overlap by LONG_OVERLAP; each segment runs through the same device
+    # pipeline and the segment scores are summed per genome (the band
+    # score counts read positions, so it adds up over segments; the error
+    # a cut or an overlap brings is inside the AMB_MARGIN replay guard).
+    def _classify_long(self, reads, ids, out, block):
+        SEG = self.max_width
+        OV = LONG_OVERLAP
+        seg_of: dict[int, list[int]] = {}
+        segs: list = []  # (read index, segment start, (name, seq, None))
+        for i in ids:
+            name, seq, _q = reads[i]
+            L = len(seq)
+            starts = list(range(0, L - SEG, SEG - OV)) + [L - SEG]
+            seg_of[i] = starts
+            for s0 in starts:
+                segs.append((i, s0, (name, seq[s0 : s0 + SEG], None)))
+        rows: dict = {}
+        pending: list = []
+
+        def drain():
+            sub, handles = pending.pop(0)
+            res = _unpack_rows(np.asarray(handles), len(sub))
+            for j, (ri, ss, _) in enumerate(sub):
+                rows[(ri, ss)] = {k: int(v[j]) for k, v in res.items()}
+
+        Wb = _bucket(SEG)
+        for c0 in range(0, len(segs), block):
+            sub = segs[c0 : c0 + block]
+            chunk = [s[2] for s in sub]
+            Bp = block if len(sub) == block else _pow2(len(sub), 8)
+            handles, _lens = self._dispatch_chunk(chunk, Wb, Bp)
+            pending.append((sub, handles))
+            while len(pending) > 1:
+                drain()
+        while pending:
+            drain()
+
+        replay = []
+        self.stats["n_reads"] += len(ids)
+        for i in ids:
+            name, seq, qual = reads[i]
+            L = len(seq)
+            acc: dict[int, int] = {}
+            cov: dict[int, int] = {}
+            dirv: dict[tuple, int] = {}
+            best_pos: dict[int, tuple] = {}  # rid -> (seg score, read pos)
+            n_exist = 0
+            # the sum of the per-segment other-genome scores bounds the
+            # total of a genome that narrowly loses every segment
+            alt_floor = 0
+            for ss in seg_of[i]:
+                row = rows[(i, ss)]
+                n_exist += row["n_exist"]
+                alt_floor += row["score_alt"]
+                rid = row["ref"]
+                if rid >= 0 and row["score"] > 0:
+                    acc[rid] = acc.get(rid, 0) + row["score"]
+                    cov[rid] = cov.get(rid, 0) + row["cov"]
+                    dirv[(rid, row["direction"])] = dirv.get(
+                        (rid, row["direction"]), 0) + row["score"]
+                    # the segment at read offset ss sits at offset
+                    # L - SEG - ss of the reverse-complement strand
+                    s_off = ss if row["direction"] == 1 else L - SEG - ss
+                    cand = (row["score"], max(row["pos"] - s_off, 0))
+                    if rid not in best_pos or cand > best_pos[rid]:
+                        best_pos[rid] = cand
+            if acc:
+                rid = max(acc, key=lambda r: (acc[r], -r))
+                sc = acc[rid]
+                second = max([v for r, v in acc.items() if r != rid],
+                             default=0)
+                second = max(second, alt_floor)
+                cv = cov[rid]
+                eff = sc + (cv >> 5)
+                thr, long_thr = _score_threshold(
+                    L, self.min_score, self.filter_min_length)
+                ok = eff >= thr or (long_thr and eff >= long_thr
+                                    and cv >= self.filter_min_length)
+                d = max((k for k in dirv if k[0] == rid),
+                        key=lambda k: dirv[k])[1]
+                ambiguous = (ok and sc - second <= self.amb_margin) or (
+                    not ok and eff >= thr - self.amb_margin)
+            else:
+                rid, sc, d, ok = -1, 0, 0, False
+                ambiguous = n_exist >= AMB_MIN_EXIST
+            if self.exact_fallback and ambiguous:
+                replay.append(i)
+                continue
+            out[i] = FastResult(
+                name=name, ref_ID=rid if ok else -1,
+                direction=d if ok else 0, score=sc, read_len=L,
+                pos=best_pos[rid][1] if (ok and rid in best_pos) else -1)
+        if replay:
+            self.stats["n_fallback"] += len(replay)
+            for i, fr in zip(replay, self._replay([reads[i] for i in replay])):
+                out[i] = fr
+
+    def _dispatch_chunk(self, reads, W=None, Bp=None):
+        """Encode and launch the device pipeline; returns (DeviceResult,
+        lens) without waiting for the device."""
+        packed, lens_p, lens = self._encode(reads, W=W, Bp=Bp)
+        return self._run(packed, lens_p), lens
+
+    def _format(self, reads, lens, res):
+        """Format one chunk's device rows. Returns (results, replay), replay
+        being the (local index, read) pairs this chunk could not call
+        unambiguously; the caller replays them."""
+        out = []
+        replay = []
+        self.stats["n_reads"] += len(reads)
+        for i, (name, seq, qual) in enumerate(reads):
+            sc = int(res["score"][i])
+            rid = int(res["ref"][i])
+            rl = int(lens[i])
+            cov = int(res["cov"][i])
+            eff = sc + (cov >> 5)
+            thr, long_thr = _score_threshold(
+                rl, self.min_score, self.filter_min_length)
+            ok = rid >= 0 and (eff >= thr or (
+                long_thr and eff >= long_thr
+                and cov >= self.filter_min_length))
+            if self.exact_fallback:
+                ambiguous = (
+                    # another genome scored within tie-order distance
+                    (ok and sc - int(res["score_alt"][i]) <= self.amb_margin)
+                    # hovering at the filter threshold
+                    or (rid >= 0 and not ok and eff >= thr - self.amb_margin)
+                    # seeds existed but the device path found no anchors
+                    or (rid < 0 and int(res["n_exist"][i]) >= AMB_MIN_EXIST)
+                )
+                if ambiguous:
+                    replay.append((i, (name, seq, qual)))
+            out.append(FastResult(
+                name=name, ref_ID=rid if ok else -1,
+                direction=int(res["direction"][i]) if ok else 0,
+                score=sc, read_len=rl,
+                pos=int(res["pos"][i]) if ok else -1))
+        if replay:
+            self.stats["n_fallback"] += len(replay)
+        return out, replay
+
+    def _replay(self, reads) -> list[FastResult]:
+        """Exact calls of ambiguous reads by the native engine. Serialized:
+        classify_batch replays on a worker thread while _classify_long may
+        replay from the caller's."""
+        with self._replay_lock:
+            return self._replay_inner(reads)
+
+    def _replay_inner(self, reads) -> list[FastResult]:
+        if self._native is None:
+            from .native import NativeClassifier
+
+            self._native = NativeClassifier(
+                self.idx, n_threads=self._fallback_threads)
+        out = []
+        for rr in self._native.classify_batch(reads):
+            prim = next((h for h in rr.hits if h.primary == 1), None)
+            if prim is None:
+                out.append(FastResult(name=rr.name, ref_ID=-1, direction=0,
+                                      score=0, read_len=len(rr.seq)))
+            else:
+                out.append(FastResult(
+                    name=rr.name, ref_ID=prim.ref_ID,
+                    direction=prim.direction, score=prim.sum_score,
+                    read_len=len(rr.seq), pos=prim.t_st))
+        return out
+
+    # ------------------------------------------------------------ report --
+    def tid_of(self, ref_ID: int) -> int:
+        """tid from the 'tid|NNN|...' reference naming convention
+        (cly_mt.c:777-786); 0 when unclassified or unnamed."""
+        if ref_ID < 0:
+            return 0
+        parts = self.idx.ref_names[ref_ID].split("|")
+        return int(parts[1]) if len(parts) > 1 and parts[1].isdigit() else 0

@@ -29,8 +29,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# kernel name -> (source file, C entry point, argtypes)
+# kernel name -> (source file, C entry point, argtypes), in pipeline order
 KERNELS = {
+    "stage1": (
+        "stage1.cu", "dsb_stage1",
+        [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "interval_search": (
         "fm_search.cu", "dsb_interval_search",
         [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P]),

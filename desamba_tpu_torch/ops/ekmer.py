@@ -3,8 +3,9 @@ two-hash bloom test over [B, L] read-code matrices.
 
 Counterpart of desamba_tpu/ops/ekmer.py. Both bitmaps live in one int32
 tensor holding the uint32 words (w1's words after w0's), so the two probes
-of a k-mer are one gather. `_probe_reads` and `kmer_lo26` are plain torch
-in this port; they have no hand kernel yet.
+of a k-mer are one gather. `_probe_reads` and `kmer_lo26` are the plain
+torch versions of two thirds of the stage-1 kernel (ops/seeds.stage1,
+csrc/stage1.cu).
 """
 from __future__ import annotations
 
@@ -88,27 +89,18 @@ def _addr(h):
     return word_idx, ((lo >> 3) & 3) * 8 + bit
 
 
-def _probe_both(w01: torch.Tensor, n_words0: int, h1, h2):
-    """Both bloom tests with one gather into the concatenated bitmaps."""
-    wi1, sh1 = _addr(h1)
-    wi2, sh2 = _addr(h2)
-    n = wi1.shape[0]
-    w = w01[torch.cat([wi1, wi2 + n_words0])].to(torch.int64)
-    r1 = ((w[:n] >> sh1) & 1).bool()
-    r2 = ((w[n:] >> sh2) & 1).bool()
-    return r1, r2
-
-
 def _sub(x: torch.Tensor, j0: int, stride: int, n_g: int) -> torch.Tensor:
     """Columns j0 + stride*[0, n_g) of a [B, ...] tensor."""
     return x[:, j0 : j0 + stride * (n_g - 1) + 1 : stride]
 
 
-def _probe_reads(w01, codes, lengths, lek: int, single_base_max: int,
-                 mask_bits: int, stride: int = 1, n_words0: int = 0):
-    """uint8[B, n_g]: 1 where the e-kmer at grid offset (stride-1) +
-    stride*g passes the base-count filter, is not the zero k-mer, lies in
-    the read and hits both bloom bitmaps (get_exist_kmer)."""
+def _probe_addrs(codes, lengths, lek: int, single_base_max: int,
+                 mask_bits: int, stride: int = 1):
+    """(want bool[B, n_g], (wi1, sh1), (wi2, sh2)): the grid points at
+    offset (stride-1) + stride*g that must read the bitmaps (they pass the
+    base-count filter, are not the zero k-mer and lie in the read), and the
+    word index and bit shift of each point's two probes, flattened; wi2
+    indexes the second bitmap."""
     B, L = codes.shape
     dev = codes.device
     n_g = _grid(L - lek + 1, stride)
@@ -128,15 +120,28 @@ def _probe_reads(w01, codes, lengths, lek: int, single_base_max: int,
         cc = _sub(c, p0 + j, stride, n_g)
         hi = ((hi << 2) | (lo >> 30)) & u64.M32
         lo = ((lo << 2) | cc) & u64.M32
-    keep = ~fail & ~((hi == 0) & (lo == 0))
+    pos = p0 + stride * torch.arange(n_g, device=dev)
+    in_read = pos[None, :] + lek <= lengths[:, None]
+    want = ~fail & ~((hi == 0) & (lo == 0)) & in_read
     hi, lo = hi.reshape(-1), lo.reshape(-1)
     h1 = u64.and_mask_bits(u64.hash64_1((hi, lo)), mask_bits)
     h2 = u64.and_mask_bits(u64.hash64_2((hi, lo)), mask_bits)
-    r1, r2 = _probe_both(w01, n_words0, h1, h2)
-    pos = p0 + stride * torch.arange(n_g, device=dev)
-    in_read = pos[None, :] + lek <= lengths[:, None]
-    hit = keep & r1.view(B, n_g) & r2.view(B, n_g) & in_read
-    return hit.to(torch.uint8)
+    return want, _addr(h1), _addr(h2)
+
+
+def _probe_reads(w01, codes, lengths, lek: int, single_base_max: int,
+                 mask_bits: int, stride: int = 1, n_words0: int = 0):
+    """uint8[B, n_g]: 1 where the e-kmer at grid offset (stride-1) +
+    stride*g passes the base-count filter, is not the zero k-mer, lies in
+    the read and hits both bloom bitmaps (get_exist_kmer). Both probes of
+    a k-mer are one gather into the concatenated bitmaps."""
+    want, (wi1, sh1), (wi2, sh2) = _probe_addrs(
+        codes, lengths, lek, single_base_max, mask_bits, stride)
+    n = wi1.shape[0]
+    w = w01[torch.cat([wi1, wi2 + n_words0])].to(torch.int64)
+    r1 = ((w[:n] >> sh1) & 1).bool()
+    r2 = ((w[n:] >> sh2) & 1).bool()
+    return (want & r1.view(want.shape) & r2.view(want.shape)).to(torch.uint8)
 
 
 def kmer_lo26(codes, lek: int, stride: int = 1):

@@ -10,9 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from desamba_tpu.constants import S_A_KMER_L
-
 from .. import kernels
+from ..constants import S_A_KMER_L
 from .u64emu import M32, popcount32
 
 EVEN = 0x55555555

@@ -1,7 +1,9 @@
 """The torch port's fast classify path against the JAX package's, on the
 CPU: every stage output, the [7, Bp] result pack, FastResult tuples and
-stats on the golden reads, and the port's CLI. All values are integers,
-so the tolerance is exact equality everywhere."""
+stats on the golden reads, and the port's CLI. The port's classifier
+stands alone and reads the index with its own loader; the JAX classifier
+takes the JAX package's OracleIndex of the same directory. All values are
+integers, so the tolerance is exact equality everywhere."""
 import os
 import subprocess
 import sys
@@ -36,10 +38,17 @@ def jax_cl(golden_oracle_index):
 
 
 @pytest.fixture(scope="module")
-def torch_cl(golden_oracle_index):
+def host_index(golden_index_dir):
+    from desamba_tpu_torch.index.loader import load_index
+
+    return load_index(golden_index_dir)
+
+
+@pytest.fixture(scope="module")
+def torch_cl(host_index):
     from desamba_tpu_torch.engine.fast_engine import FastClassifier
 
-    return FastClassifier(golden_oracle_index, device="cpu")
+    return FastClassifier(host_index, device="cpu")
 
 
 def _np(x):
@@ -150,7 +159,8 @@ def test_fast_results_equal_on_golden_reads(jax_cl, torch_cl, fallback):
     assert sum(r.ref_ID >= 0 for r in got) > len(got) // 2
 
 
-def test_long_read_block_partitioning_equal(golden_oracle_index):
+def test_long_read_block_partitioning_equal(golden_oracle_index,
+                                            host_index):
     """A >8 kb read split into max_width=2048 segments, both strands."""
     from desamba_tpu.engine.fast_engine import FastClassifier as JaxFC
     from desamba_tpu.io.fastx import read_fastx
@@ -169,11 +179,35 @@ def test_long_read_block_partitioning_equal(golden_oracle_index):
     assert len(seq) > 8192
     ref = JaxFC(golden_oracle_index, exact_fallback=False,
                 max_width=2048).classify_batch(reads)
-    got = FastClassifier(golden_oracle_index, exact_fallback=False,
+    got = FastClassifier(host_index, exact_fallback=False,
                          max_width=2048, device="cpu").classify_batch(reads)
     assert _tuples(got) == _tuples(ref)
     assert got[0].ref_ID == 1 and got[0].direction == 1
     assert got[1].ref_ID == 1 and got[1].direction == 0
+
+
+@pytest.mark.parametrize("fallback", [False, True])
+def test_graft_long_read_equal(golden_oracle_index, jax_cl, torch_cl,
+                               fallback):
+    """The >8 kb read of __graft_entry__ (two segments at the default
+    max_width of 8192) beside short golden reads, with and without the
+    exact replay: FastResults and stats equal the JAX classifier's."""
+    from __graft_entry__ import _make_long_read
+
+    reads = _golden_reads(max_len=400)[:6] + [
+        _make_long_read(golden_oracle_index)]
+    assert len(reads[-1][1]) > torch_cl.max_width == 8192
+    jax_cl.exact_fallback = torch_cl.exact_fallback = fallback
+    jax_cl.stats = dict(n_reads=0, n_fallback=0)
+    torch_cl.stats = dict(n_reads=0, n_fallback=0)
+    try:
+        ref = jax_cl.classify_batch(reads)
+        got = torch_cl.classify_batch(reads)
+    finally:
+        jax_cl.exact_fallback = torch_cl.exact_fallback = True
+    assert _tuples(got) == _tuples(ref)
+    assert torch_cl.stats == jax_cl.stats
+    assert got[-1].ref_ID >= 0
 
 
 def test_batch_padding_consistency(torch_cl):
@@ -183,17 +217,17 @@ def test_batch_padding_consistency(torch_cl):
     assert _tuples(torch_cl.classify_batch(reads)) == _tuples(solo)
 
 
-def test_device_is_required(golden_oracle_index):
+def test_device_is_required(host_index):
     from desamba_tpu_torch.engine.fast_engine import FastClassifier
 
     with pytest.raises(TypeError):
-        FastClassifier(golden_oracle_index)
-    cl = FastClassifier(golden_oracle_index, device="cpu",
+        FastClassifier(host_index)
+    cl = FastClassifier(host_index, device="cpu",
                         tables=(None, _FakeEk(), None, None))
+    assert cl.device == torch.device("cpu")
     with pytest.raises(NotImplementedError):
-        cl._shard_stages(object())
-    with pytest.raises(NotImplementedError):
-        cl._run_mesh(None, None)
+        FastClassifier(host_index, device="cpu", mesh=object(),
+                       tables=(None, _FakeEk(), None, None))
 
 
 class _FakeEk:

@@ -1,4 +1,4 @@
-"""The three hand CUDA kernels against their plain torch versions.
+"""The hand CUDA kernels against their plain torch versions.
 
 The tests marked `cuda` run only where torch sees a GPU (nvcc builds the
 kernels at first use); elsewhere they skip with a reason. On the card:
@@ -26,11 +26,11 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def tables(golden_oracle_index):
-    from desamba_tpu.index.tensor_index import from_oracle_index
+def tables(golden_index_dir):
     from desamba_tpu_torch.convert import build_tables
+    from desamba_tpu_torch.index.loader import load_index
 
-    return build_tables(from_oracle_index(golden_oracle_index), "cpu")
+    return build_tables(load_index(golden_index_dir), "cpu")
 
 
 def _to(tabs, dev):
@@ -66,6 +66,152 @@ def _search_inputs(fm, n, W, seed):
                 max_rst=i32(np.full(n, 2)),
                 l_min=i32(rng.choice([14, 20], n)),
                 l_max=i32(np.minimum(s_idx, rng.choice([16, 41], n))))
+
+
+# ------------------------------------------------------------ stage 1 --
+M64 = (1 << 64) - 1
+
+
+def _hash64_np(k: np.ndarray):
+    """hash64_1 and hash64_2 (lib/utils.c:1067-1091) in native numpy
+    uint64 arithmetic, which wraps like C's."""
+    u = np.uint64
+    with np.errstate(over="ignore"):
+        a = k.copy()
+        a = ~a + (a << u(21))
+        a ^= a >> u(24)
+        a = (a + (a << u(3))) + (a << u(8))
+        a ^= a >> u(14)
+        a = (a + (a << u(2))) + (a << u(4))
+        a ^= a >> u(28)
+        a = a + (a << u(31))
+        b = k.copy()
+        b += ~(b << u(32))
+        b ^= b >> u(22)
+        b += ~(b << u(13))
+        b ^= b >> u(8)
+        b += b << u(3)
+        b ^= b >> u(15)
+        b += ~(b << u(27))
+        b ^= b >> u(31)
+    return a, b
+
+
+def _grid_kmers(codes: np.ndarray, lek: int, stride: int = 3):
+    """uint64[B, n_g] k-mers of the stride grid of code rows."""
+    n_g = (codes.shape[1] - lek + 1 - stride) // stride + 1
+    k = np.zeros((codes.shape[0], n_g), np.uint64)
+    for j in range(lek):
+        col = codes[:, stride - 1 + j : stride - 1 + j + stride * (n_g - 1)
+                    + 1 : stride]
+        k = (k << np.uint64(2)) | col.astype(np.uint64)
+    return k
+
+
+def _set_bits(words: np.ndarray, h: np.ndarray) -> None:
+    """Set bloom bit h (byte h >> 3, bit 7 - (h & 7)) in uint32 words."""
+    h = h.astype(np.int64)
+    bit = ((h >> 3) & 3) * 8 + 7 - (h & 7)
+    np.bitwise_or.at(words, h >> 5, (np.uint32(1) << bit.astype(np.uint32)))
+
+
+def _golden_codes(W):
+    """(codes2 uint8[2B, W], lengths2 int32[2B]) of the golden reads that
+    fit width W: forward rows, then reverse-complement rows."""
+    from desamba_tpu_torch.io.fastx import read_fastx
+
+    code = np.full(256, 1, np.uint8)
+    for j, b in enumerate(b"ACGT"):
+        code[b] = j
+    root = os.path.dirname(os.path.abspath(__file__))
+    reads = [r.seq for r in read_fastx(os.path.join(root, "golden",
+                                                    "reads.fq"))
+             if len(r.seq) <= W]
+    B = len(reads)
+    codes = np.zeros((2 * B, W), np.uint8)
+    lens = np.zeros(2 * B, np.int32)
+    for i, s in enumerate(reads):
+        c = code[np.frombuffer(s, np.uint8)]
+        codes[i, : len(c)] = c
+        codes[B + i, : len(c)] = (3 - c)[::-1]
+        lens[i] = lens[B + i] = len(c)
+    return codes, lens
+
+
+def _stage1_rows(B2, W, lek, seed):
+    """Random code rows with edge lengths: 0, lek + 1, lek + 2, odd,
+    full width, and random lengths."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (B2, W)).astype(np.uint8)
+    lens = rng.integers(0, W + 1, B2).astype(np.int32)
+    edge = [0, lek + 1, lek + 2, lek + 3, 2 * lek + 1, W - 1, W]
+    lens[: min(B2, len(edge))] = edge[: min(B2, len(edge))]
+    lens[len(edge) : len(edge) + 4] |= 1
+    if B2 > 12:
+        codes[10, :] = 0          # the zero k-mer everywhere
+        codes[11, : W // 2] = 2   # a single-base run (base-count filter)
+    return codes, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_bits,load", [(20, 1.0), (22, 0.93),
+                                            (27, 0.5)])
+@pytest.mark.parametrize("B2,W,lek", [(40, 256, 16), (33, 300, 17),
+                                      (64, 2048, 16), (19, 3072, 20),
+                                      (9, 8192, 18)])
+def test_stage1_kernel_random_rows(cuda, B2, W, lek, mask_bits, load):
+    """Random rows on synthetic bitmaps: every bit set (runs span whole
+    rows), a dense random bitmap (runs of every length) and a sparse one
+    where exactly half the rows' grid k-mers are set in both bitmaps (a
+    hit needs both hashes right, bit for bit)."""
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+
+    codes, lens = _stage1_rows(B2, W, lek, seed=W + lek + mask_bits)
+    rng = np.random.default_rng(mask_bits)
+    nw = 1 << (mask_bits - 5)
+    if load == 0.5:
+        words = np.zeros(2 * nw, np.uint32)
+        k = _grid_kmers(codes, lek).reshape(-1)
+        k = k[rng.random(k.size) < load]
+        h1, h2 = _hash64_np(k)
+        m = np.uint64((1 << mask_bits) - 1)
+        _set_bits(words[:nw], h1 & m)
+        _set_bits(words[nw:], h2 & m)
+    else:
+        bits = rng.random((2 * nw, 32)) < load
+        words = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)
+                 ).sum(1).astype(np.uint32)
+    w01 = torch.from_numpy(words.view(np.int32)).to(cuda)
+    args = (w01, torch.from_numpy(codes).to(cuda),
+            torch.from_numpy(lens).to(cuda), lek, int(0.8 * lek), mask_bits,
+            nw)
+    before = kernels.launches["stage1"]
+    got = stage1(*args)
+    ref = stage1_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["stage1"] == before + 1
+    for name, g, r in zip(("lo26", "kidx", "runlen", "n_exist"), got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    assert int(ref[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1024, 2048, 3072])
+def test_stage1_kernel_golden_rows(cuda, tables, W):
+    """Golden reads (both strands) on the golden index's folded filter."""
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+
+    codes, lens = _golden_codes(W)
+    ek = tables[1]
+    args = (ek.w01.to(cuda), torch.from_numpy(codes).to(cuda),
+            torch.from_numpy(lens).to(cuda), ek.lek, ek.single_base_max,
+            ek.mask_bits, ek.n_words0)
+    got = stage1(*args)
+    ref = stage1_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("lo26", "kidx", "runlen", "n_exist"), got, ref):
+        assert torch.equal(g, r), name
+    assert int(ref[2].max()) > 1
 
 
 # --------------------------------------------------------- on the card --
@@ -168,6 +314,45 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 
 # ------------------------------------------------------------ any host --
+def test_stage1_cpu_route_and_input_checks(tables):
+    """On the CPU the wrapper runs stage1_plain and counts nothing; bad
+    inputs raise on any device."""
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+
+    ek = tables[1]
+    codes, lens = _stage1_rows(20, 256, ek.lek, seed=3)
+    args = [ek.w01, torch.from_numpy(codes), torch.from_numpy(lens), ek.lek,
+            ek.single_base_max, ek.mask_bits, ek.n_words0]
+    before = dict(kernels.launches)
+    for g, r in zip(stage1(*args), stage1_plain(*args)):
+        assert torch.equal(g, r)
+    assert kernels.launches == before
+    bad = [(1, args[1].to(torch.int32)), (2, args[2].to(torch.int64)),
+           (1, args[1][:, ::2]), (0, args[0][: ek.n_words0]),
+           (5, 40)]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            stage1(*a)
+
+
+def test_numpy_hashes_equal_the_u64_emulation():
+    """The tests' native uint64 hashes equal the port's (hi, lo) pair
+    emulation on random 40-bit keys."""
+    from desamba_tpu_torch.ops import u64emu
+
+    rng = np.random.default_rng(40)
+    k = rng.integers(0, 1 << 40, 5000, dtype=np.uint64)
+    h1, h2 = _hash64_np(k)
+    pair = (torch.from_numpy((k >> np.uint64(32)).astype(np.int64)),
+            torch.from_numpy((k & np.uint64(0xFFFFFFFF)).astype(np.int64)))
+    for h, e in ((h1, u64emu.hash64_1(pair)), (h2, u64emu.hash64_2(pair))):
+        assert ((h >> np.uint64(32)).astype(np.int64) == e[0].numpy()).all()
+        assert ((h & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                == e[1].numpy()).all()
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     from desamba_tpu_torch.ops.matchblock import band_score_packed
 

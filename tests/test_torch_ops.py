@@ -138,6 +138,54 @@ def test_run_lengths_and_top_seeds(case):
         assert tk.tolist() == [[0]] and tr.tolist() == [[1]]
 
 
+@pytest.fixture(scope="module")
+def host_ek(golden_index_dir):
+    from desamba_tpu_torch.convert import build_tables
+    from desamba_tpu_torch.index.loader import load_index
+
+    return build_tables(load_index(golden_index_dir), "cpu")[1]
+
+
+def _edge_rows(codes, lens, lek):
+    """The golden rows plus rows of length 0, lek + 1, lek + 2 and odd
+    lengths, cut from the first golden rows (codes past a length stay, as
+    padding does)."""
+    extra = [0, lek + 1, lek + 2, lek + 3, 2 * lek + 1, 101, 999]
+    n = len(extra)
+    W = codes.shape[1]
+    c2 = np.concatenate([codes, codes[:n]])
+    l2 = np.concatenate([lens, np.minimum(extra, W).astype(np.int32)])
+    l2[: len(lens)] |= 1  # every golden row odd too (<= its true length)
+    l2[: len(lens)] = np.minimum(l2[: len(lens)], lens)
+    return c2, l2
+
+
+@pytest.mark.parametrize("W", [256, 512, 1024, 2048, 3072])
+def test_stage1_plain_equals_jax_stage1(W, jtab, host_ek):
+    """stage1_plain (the kernel's oracle and CPU route) equals the JAX
+    fast path's stage 1 at each width bucket, edge rows included."""
+    import jax
+
+    from desamba_tpu.engine.fast_engine import _build_stages
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+
+    jek = jtab[1]
+    codes, lens = _edge_rows(*_golden_codes(W), jek.lek)
+    js1 = jax.jit(_build_stages(jek.lek, jek.single_base_max, jek.mask_bits,
+                                20, jek.n_words0)[0])
+    ref = js1(jek.w01, jnp.asarray(codes), jnp.asarray(lens))
+    args = (host_ek.w01, torch.from_numpy(codes), torch.from_numpy(lens),
+            host_ek.lek, host_ek.single_base_max, host_ek.mask_bits,
+            host_ek.n_words0)
+    got = stage1_plain(*args)
+    for name, a, b in zip(("lo26", "kidx", "runlen", "n_exist"), ref, got):
+        assert b.dtype == torch.int32
+        _eq(a, b, name)
+    assert int(got[2].max()) > 1 and int(got[3][-7]) == 0
+    for a, b in zip(got, stage1(*args)):  # the CPU route of the wrapper
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------------ stage 2 --
 @pytest.fixture(scope="module")
 def seeds(jtab, ttab):

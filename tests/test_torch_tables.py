@@ -1,7 +1,8 @@
 """The torch port's device tables against the JAX package's, on the golden
-index: built by the port itself from the TensorIndex, and carried across
-from the JAX tables by convert.tables_from_jax. Also: the port imports no
-jax and none of the JAX package's jax modules."""
+index: built by the port itself from its own index loader, and carried
+across from the JAX tables by convert.tables_from_jax. Also: the port and
+chip_smoke.py import no jax, nothing of the JAX package and not bench."""
+import ast
 import os
 import subprocess
 import sys
@@ -32,10 +33,18 @@ def jtab(ti):
 
 
 @pytest.fixture(scope="module")
-def ttab(ti):
+def host_index(golden_index_dir):
+    from desamba_tpu_torch.index.loader import load_index
+
+    return load_index(golden_index_dir)
+
+
+@pytest.fixture(scope="module")
+def ttab(host_index):
     from desamba_tpu_torch.convert import build_tables
 
-    return dict(zip(("fm", "ek", "loc", "ra"), build_tables(ti, "cpu")))
+    return dict(zip(("fm", "ek", "loc", "ra"),
+                    build_tables(host_index, "cpu")))
 
 
 def _bits(x):
@@ -71,12 +80,12 @@ def test_scalars_equal_jax(jtab, ttab):
 
 
 @pytest.mark.parametrize("fold_bits", [1, 2])
-def test_exist_filter_fold_equals_jax(ti, fold_bits):
+def test_exist_filter_fold_equals_jax(ti, host_index, fold_bits):
     from desamba_tpu.ops.ekmer import EkArrays as JEk
     from desamba_tpu_torch.ops.ekmer import EkArrays
 
     j = JEk(ti, fold_bits=fold_bits)
-    t = EkArrays.from_tensor_index(ti, "cpu", fold_bits=fold_bits)
+    t = EkArrays.from_tensor_index(host_index, "cpu", fold_bits=fold_bits)
     assert (j.mask_bits, j.n_words0) == (t.mask_bits, t.n_words0)
     assert (_bits(j.w01) == _bits(t.w01)).all()
 
@@ -98,18 +107,26 @@ def test_tables_from_jax_equal_own_build(jtab, ttab, table):
         assert conv["ek"].n_words0 == ttab["ek"].n_words0
 
 
+FORBIDDEN = ("jax", "jaxlib", "desamba_tpu", "bench")
+
+
+def _forbidden(mod: str) -> bool:
+    return mod.split(".")[0] in FORBIDDEN
+
+
 def test_port_imports_no_jax():
-    """Importing the port and every one of its submodules loads neither
-    jax nor the JAX package's jax modules (desamba_tpu.ops.*)."""
+    """Importing every module of the port, and chip_smoke.py as a module,
+    in a fresh interpreter leaves jax, the JAX package (desamba_tpu and
+    all under it) and bench out of sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import desamba_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'desamba_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 12, mods\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-        "('jax.', 'jaxlib', 'desamba_tpu.ops'))]\n"
+        "import chip_smoke\n"
+        "assert len(mods) >= 18, mods\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -118,3 +135,26 @@ def test_port_imports_no_jax():
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stderr
     assert p.stdout.startswith("ok")
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "desamba_tpu_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_names_jax_or_the_jax_package(path):
+    """No import or from-import in the port or chip_smoke.py names jax,
+    desamba_tpu (or anything under it) or bench, at any depth."""
+    tree = ast.parse(open(path).read(), path)
+    named = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            named += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            named.append(node.module or "")
+    assert not [m for m in named if _forbidden(m)], named
