@@ -28,7 +28,8 @@ Phases (any failure raises, and the script exits nonzero):
      classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
-     kernel must have launched; then three pure-device runs (reads/s) and
+     kernel must have launched (stage 1's and stage 3's once a chunk);
+     then three pure-device runs (reads/s) and
      the device-vs-native agreement through the port's binding of the
      native engine (gated at 0.99, bench.py's gate; truth accuracy)
   4. every read through a classifier running the plain versions
@@ -38,7 +39,8 @@ Phases (any failure raises, and the script exits nonzero):
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
      torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
-     and, for stage 1, the kernel's bound; then one pure-device
+     and, for stage 1, the kernel's bound; stage 3's (locate + vote)
+     device time, span and launches per chunk; then one pure-device
      classify_batch unprofiled and one under torch.profiler: device busy
      share = kernel time over the unprofiled wall, and each hand kernel's
      device time per launch as the path runs it
@@ -72,12 +74,14 @@ GLOBAL = {
     "stage1": "stage1_kernel",
     "interval_search": "interval_search_kernel",
     "row_walks": "row_walks_kernel",
+    "locate": "locate_kernel",
     "band_score_packed": "band_score_kernel",
 }
 REPLACES = {
     "stage1": "desamba_tpu/engine/fast_engine.py:203",
     "interval_search": "desamba_tpu/ops/fm.py:165",
     "row_walks": "desamba_tpu/ops/fm.py:261",
+    "locate": "desamba_tpu/ops/locate.py:59",
     "band_score_packed": "desamba_tpu/ops/matchblock.py:201",
 }
 
@@ -298,11 +302,74 @@ def work(name: str, args, out) -> tuple[int, int]:
                     + (out[3] & ~state[3]).sum(dtype=torch.int64))
         return (nbytes(lanes, max_lens, state, out) + reads * (SECTOR + 4),
                 reads * 20)
+    if name == "locate":
+        return locate_work(*args, out)
     read_w, rlen, win_w, rel_lo, rel_hi, K = args
     # ~25 int32 operations per (row, read word, band offset): the SWAR
     # compare, masks and the 9-code run test
     return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
             read_w.numel() * K * 25)
+
+
+def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
+    """(bytes, int32 operations) of resolve_rows then expand_refpos on
+    these lanes. Bytes: the lanes in and the [n, P] outputs out once; one
+    sector for each LF step taken (and for the step that met a sentinel)
+    from each distinct start row, as lanes that start on one row walk the
+    same chain and a walk's rows are random; and each distinct sector of
+    the other tables once, since a sector read again, by another lane or
+    by a deeper level of the same search, can come from L2: the sample
+    pair (sa_uni, sa_off), every uni_start probe of the binary searches
+    (the upper levels are a few sectors that all lanes share; only the
+    levels whose probes spread wider than L2 holds cost about a sector a
+    lane), the reflist pair and the P occurrences in refpos_global and
+    refpos_refid. Operations: ~20 a step, ~6 a search probe, ~40 a lane
+    and ~10 an output slot."""
+    import torch
+
+    from desamba_tpu_torch.ops.locate import resolve_rows
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def sectors(*idx):  # distinct 32-byte sectors of 4-byte elements
+        return torch.unique(torch.cat([i.reshape(-1).to(torch.int64)
+                                       for i in idx]) // (SECTOR // 4)
+                            ).numel()
+
+    res = resolve_rows(fm, loc, rows, valid)
+    # LF reads a lane makes: its steps, and one more where it met a
+    # sentinel (not ok in under max_lf + 1 = 25 steps); counted once per
+    # distinct valid start row
+    reads = res["steps"] + (~res["ok"] & (res["steps"] < 25)).to(
+        res["steps"].dtype)
+    starts, first = torch.unique(rows[valid], return_inverse=True)
+    steps = int(torch.zeros_like(starts).scatter_(
+        0, first, reads[valid].to(starts.dtype)).sum(dtype=torch.int64))
+    s = (res["row"] >> 3).clamp(0, fm.sa_uni.shape[0] - 1)
+    us, p = loc.uni_start, res["pos"]
+    n_us = us.shape[0]
+    lo = torch.zeros_like(p, dtype=torch.int64)
+    hi = torch.full_like(lo, n_us)
+    probed = []
+    while bool((lo < hi).any()):
+        act = lo < hi
+        mid = (lo + hi) >> 1
+        probed.append(mid[act])
+        le = us[mid.clamp(max=n_us - 1)] <= p
+        lo = torch.where(act & le, mid + 1, lo)
+        hi = torch.where(act & ~le, mid, hi)
+    u = res["uni"].to(torch.int64)
+    n_rl = loc.reflist.shape[0]
+    rp_s = loc.reflist[u.clamp(0, n_rl - 1)].to(torch.int64)
+    rp_c = (rp_s[:, None] + torch.arange(P, device=u.device)).clamp(
+        0, loc.refpos_global.shape[0] - 1)
+    n_probes = sum(m.numel() for m in probed)
+    return (nbytes(rows, valid, *out) + SECTOR * (
+                steps + 2 * sectors(s) + sectors(*probed)
+                + sectors(u.clamp(0, n_rl - 1), (u + 1).clamp(0, n_rl - 1))
+                + 2 * sectors(rp_c)),
+            20 * steps + 6 * n_probes + rows.numel() * (40 + 10 * P))
 
 
 def bound(name: str, args, out) -> tuple[float, str]:
@@ -326,6 +393,7 @@ def check_kernels(cap: dict) -> dict:
         "interval_search": lambda a: (f"n={a[6].shape[1]} "
                                       f"W={a[1].shape[1]} steps={a[7]}"),
         "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
+        "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
         "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
                                         f"W={16 * a[0].shape[1]} K={a[5]}"),
     }
@@ -520,6 +588,12 @@ def main() -> int:
     launches = dict(kernels.launches)
     if not all(launches[k] > 0 for k in kernels.KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
+    # stage 1 and stage 3 each launch their kernel once a chunk
+    if launches["locate"] != launches["stage1"]:
+        raise AssertionError(f"locate was not launched once a chunk: "
+                             f"{launches}")
+    print("launches per batch " + json.dumps(  # of the three runs
+        {k: v / 3 for k, v in launches.items()}), flush=True)
     if len(res) != n or any(r is None for r in res):
         raise AssertionError("classify_batch left reads without a result")
     cl.exact_fallback = False
@@ -578,6 +652,11 @@ def main() -> int:
     # ---- phase 5: where the time goes
     tg = where_time_goes(cl, chunks, reads, card)
     print("time " + json.dumps(tg), flush=True)
+    for key, row in tg["stages"].items():
+        s3 = row["3 locate+vote"]
+        log(f"smoke: stage 3 at {key}: device {s3['device_ms']:.3f} ms, "
+            f"span {s3['span_ms']:.3f} ms, {s3['kernels_per_call']:.0f} "
+            f"launches a call")
     on_path = tg["batch"]["hand_kernels"]
 
     rows = [dict(name=k, route="cuda", source=kernels.source_path(k),

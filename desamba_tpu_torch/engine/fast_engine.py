@@ -9,7 +9,8 @@ package's, step for step, with the same static schedule and caps:
   stage2  FM backward interval search from the hash13 head start and the
           per-row LF walks, each as burst / compact / resume (ops/fm; the
           two loops are hand CUDA kernels)
-  stage3  SA-sample resolution (ops/locate) and the windowed diagonal vote
+  stage3  SA-sample resolution and reference positions (ops/locate.locate,
+          a hand CUDA kernel) and the windowed diagonal vote
   stage4  SWAR banded rescore (ops/matchblock; a hand CUDA kernel) and
           the reference's odd/even tie order
 
@@ -41,7 +42,8 @@ from ..constants import (AMB_LARGE_L, AMB_MARGIN, AMB_MARGIN_LARGE,
                          _band, _bucket, _pow2)
 from ..ops.fm import (interval_search_plain, interval_search_state, iv_init,
                       row_walks_plain, row_walks_state, rw_init)
-from ..ops.locate import expand_refpos, resolve_rows
+from ..ops.locate import locate as locate_op
+from ..ops.locate import locate_plain
 from ..ops.matchblock import band_score_packed, band_score_packed_plain
 from ..ops.seeds import stage1 as stage1_op
 from ..ops.seeds import stage1_plain
@@ -51,10 +53,10 @@ I32 = torch.int32
 # wrappers, which launch the hand kernels on CUDA tensors, or their plain
 # torch versions on any device (to check the kernel path)
 KERNEL_OPS = dict(stage1=stage1_op, interval_search=interval_search_state,
-                  row_walks=row_walks_state,
+                  row_walks=row_walks_state, locate=locate_op,
                   band_score_packed=band_score_packed)
 PLAIN_OPS = dict(stage1=stage1_plain, interval_search=interval_search_plain,
-                 row_walks=row_walks_plain,
+                 row_walks=row_walks_plain, locate=locate_plain,
                  band_score_packed=band_score_packed_plain)
 
 
@@ -105,8 +107,9 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                  nw0: int = 0, ops=KERNEL_OPS):
     """Returns (stage1, stage2, stage3, stage4) closed over the static
     exist-filter parameters; `ops` is KERNEL_OPS or PLAIN_OPS."""
-    s1, iv, rw, bsp = (ops[k] for k in ("stage1", "interval_search",
-                                         "row_walks", "band_score_packed"))
+    s1, iv, rw, lc, bsp = (ops[k] for k in (
+        "stage1", "interval_search", "row_walks", "locate",
+        "band_score_packed"))
 
     def stage1(w01, codes2, lengths2):
         """(lo26, kidx, runlen, n_exist) of the STEP_EK probe grid."""
@@ -202,10 +205,7 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
         dropped) and sel % nwR the anchor slot in the dense [B2, A]
         layout."""
         dev = fsp_c.device
-        loc_r = resolve_rows(fm, loc, fsp_c, hit_c)
-        ref, gpos, pvalid = expand_refpos(
-            loc, loc_r["uni"], loc_r["u_off"], loc_r["ok"],
-            P=REFPOS_PER_ANCHOR)
+        ref, gpos, pvalid = lc(fm, loc, fsp_c, hit_c, REFPOS_PER_ANCHOR)
         P = ref.shape[1]
         A = nwR * P
         b_i = (sel // nwR).long()
@@ -413,7 +413,7 @@ class FastClassifier:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-GPU data parallel is not ported yet (ROADMAP queue 1 "
-                "item 9)")
+                "item 5)")
         if amb_margin is None:
             amb_margin = (AMB_MARGIN if idx.L < AMB_LARGE_L
                           else AMB_MARGIN_LARGE)

@@ -40,6 +40,10 @@ KERNELS = {
     "row_walks": (
         "row_walks.cu", "dsb_row_walks",
         [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _I, _P]),
+    "locate": (
+        "locate.cu", "dsb_locate",
+        [_P, _LL, _LL, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _P,
+         _P, _LL, _I, _I, _P, _P, _P, _P]),
     "band_score_packed": (
         "band_score.cu", "dsb_band_score",
         [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P]),

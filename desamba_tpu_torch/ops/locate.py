@@ -4,13 +4,19 @@ Counterpart of desamba_tpu/ops/locate.py (get_uni analog, cly.c:466-491,
 plus the SA-sample walk of bwt_single_search, cly.c:1353-1359): LF-step
 to a sampled row (row % 8 == 0), map (sa_uni, sa_off + steps + 1) into the
 concatenated unitig string, then a right-side searchsorted into the
-unitig starts. Plain torch; no hand kernel yet.
+unitig starts, then up to P reference occurrences of the unitig.
+
+`locate` (resolve_rows then expand_refpos, as stage 3 calls them) has a
+hand-written CUDA kernel (csrc/locate.cu) and a plain torch version,
+`locate_plain`. The wrapper runs the plain version for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import kernels
 from .fm import FmArrays, jax_index, lf_cur
 
 
@@ -50,8 +56,9 @@ class LocArrays:
 def resolve_rows(fm: FmArrays, loc: LocArrays, rows, valid,
                  max_lf: int = 24):
     """Resolve BWT rows to unitig-string positions. Returns dict(pos, uni,
-    u_off, ok); lanes that meet a sentinel ('#'/'$') before a sampled row,
-    or need more than max_lf steps, get ok=False."""
+    u_off, ok, steps, row); lanes that meet a sentinel ('#'/'$') before a
+    sampled row, or need more than max_lf steps, get ok=False. steps is
+    the LF steps each lane took and row the row it stopped at."""
     r = rows.to(torch.int32)
     k = torch.zeros_like(r)
     done = torch.zeros_like(r, dtype=torch.bool)
@@ -73,7 +80,8 @@ def resolve_rows(fm: FmArrays, loc: LocArrays, rows, valid,
     u = (torch.searchsorted(loc.uni_start, p, right=True) - 1).clamp(
         0, loc.uni_len.shape[0] - 1)
     u_off = p - loc.uni_start[u]
-    return dict(pos=p, uni=u.to(torch.int32), u_off=u_off, ok=ok)
+    return dict(pos=p, uni=u.to(torch.int32), u_off=u_off, ok=ok, steps=k,
+                row=r)
 
 
 def expand_refpos(loc: LocArrays, uni, u_off, ok, P: int = 4):
@@ -89,3 +97,60 @@ def expand_refpos(loc: LocArrays, uni, u_off, ok, P: int = 4):
     rp_c = rp.clamp(0, loc.refpos_global.shape[0] - 1).long()
     gpos = loc.refpos_global[rp_c] + u_off[:, None]
     return loc.refpos_refid[rp_c], gpos, val
+
+
+def locate_plain(fm: FmArrays, loc: LocArrays, rows, valid, P: int = 4,
+                 max_lf: int = 24):
+    """Plain torch version of the locate kernel: resolve_rows, then
+    expand_refpos. Returns (ref_id int32[n, P], gpos int32[n, P],
+    valid bool[n, P])."""
+    r = resolve_rows(fm, loc, rows, valid, max_lf)
+    return expand_refpos(loc, r["uni"], r["u_off"], r["ok"], P)
+
+
+def locate(fm: FmArrays, loc: LocArrays, rows, valid, P: int = 4,
+           max_lf: int = 24):
+    """resolve_rows then expand_refpos on every lane. rows: int32[n] BWT
+    rows; valid: bool[n]; every table contiguous and on rows' device."""
+    n = rows.shape[0]
+    dev = rows.device
+    kernels.check("rows", rows, torch.int32, (n,), dev)
+    kernels.check("valid", valid, torch.bool, (n,), dev)
+    # a table of shape (numel,) is 1-D
+    kernels.check("lfc", fm.lfc, torch.int32, (fm.lfc.numel(),), dev)
+    kernels.check("pad", fm.pad, torch.uint8, (fm.pad.numel(),), dev)
+    n_sa = fm.sa_uni.shape[0]
+    kernels.check("sa_uni", fm.sa_uni, torch.int32, (n_sa,), dev)
+    kernels.check("sa_off", fm.sa_off, torch.int32, (n_sa,), dev)
+    n_ul = loc.uni_len.shape[0]
+    kernels.check("uni_len", loc.uni_len, torch.int32, (n_ul,), dev)
+    kernels.check("uni_start", loc.uni_start, torch.int32, (n_ul + 1,), dev)
+    n_rl = loc.reflist.numel()
+    kernels.check("reflist", loc.reflist, torch.int32, (n_rl,), dev)
+    n_rp = loc.refpos_global.shape[0]
+    kernels.check("refpos_global", loc.refpos_global, torch.int32, (n_rp,),
+                  dev)
+    kernels.check("refpos_refid", loc.refpos_refid, torch.int32, (n_rp,),
+                  dev)
+    if 0 in (fm.lfc.numel(), fm.pad.numel(), n_sa, n_ul, n_rl, n_rp):
+        raise ValueError("locate: every table must be non-empty")
+    if P < 1 or max_lf < 0:
+        raise ValueError(f"P={P}, max_lf={max_lf}")
+    if not kernels.launch_device(rows):
+        return locate_plain(fm, loc, rows, valid, P, max_lf)
+    ref = torch.empty((n, P), dtype=torch.int32, device=dev)
+    gpos = torch.empty_like(ref)
+    pvalid = torch.empty((n, P), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        kernels.call("locate", kernels.ptr(fm.lfc), fm.lfc.shape[0],
+                     fm.pad.shape[0], kernels.ptr(fm.sa_uni),
+                     kernels.ptr(fm.sa_off), n_sa,
+                     kernels.ptr(loc.uni_start), n_ul + 1, n_ul,
+                     kernels.ptr(loc.reflist), n_rl,
+                     kernels.ptr(loc.refpos_global),
+                     kernels.ptr(loc.refpos_refid), n_rp, kernels.ptr(rows),
+                     kernels.ptr(valid), n, int(max_lf), int(P),
+                     kernels.ptr(ref), kernels.ptr(gpos), kernels.ptr(pvalid),
+                     kernels.stream(dev))
+    kernels.launches["locate"] += 1
+    return ref, gpos, pvalid

@@ -5,6 +5,7 @@ stands alone and reads the index with its own loader; the JAX classifier
 takes the JAX package's OracleIndex of the same directory. All values are
 integers, so the tolerance is exact equality everywhere."""
 import os
+import re
 import subprocess
 import sys
 
@@ -124,6 +125,23 @@ def test_stage4_outputs_equal(chunk):
         _eq(ref[k], got[k], f"stage4[{k}]")
 
 
+def test_stage3_plain_ops_equal_jax(chunk, torch_cl):
+    """Stage 3 built with PLAIN_OPS (locate_plain in place of the locate
+    wrapper) equals JAX's stage 3 on the golden chunk's stage-2 output."""
+    from desamba_tpu_torch.constants import ROWS_PER_SEARCH
+    from desamba_tpu_torch.engine import fast_engine as tfe
+
+    ek = torch_cl.ek
+    s3 = tfe.build_stages(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                          ek.n_words0, ops=tfe.PLAIN_OPS)[2]
+    tcodes2, tl2 = chunk["stage0"][1]
+    nwR = chunk["stage1"][1][1].shape[1] * ROWS_PER_SEARCH
+    got = s3(torch_cl.fm, torch_cl.loc, tl2, *chunk["stage2"][1],
+             B2=tcodes2.shape[0], nwR=nwR)
+    for i, (a, b) in enumerate(zip(chunk["stage3"][0], got, strict=True)):
+        _eq(a, b, f"stage3[{i}]")
+
+
 def test_stage2_has_live_hits(chunk):
     """The stage-2 comparison is not vacuous: the chunk yields anchors."""
     _, got = chunk["stage2"]
@@ -234,24 +252,134 @@ class _FakeEk:
     lek, single_base_max, mask_bits, n_words0 = 16, 12, 20, 0
 
 
+def _write_fq(path, reads):
+    with open(path, "w") as f:
+        for name, seq, _ in reads:
+            q = seq.decode()
+            f.write(f"@{name}\n{q}\n+\n{'I' * len(q)}\n")
+    return str(path)
+
+
+def _cli(module, *args):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-m", module, "classify", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
 def test_cli_lines_match_jax_classifier(tmp_path, golden_index_dir, jax_cl):
     """The port's CLI writes name, ref, direction, score and read length
     per read, as the JAX CLI's fast engine does."""
     reads = _golden_reads(max_len=250)[:6]
-    fq = tmp_path / "r.fq"
-    with open(fq, "w") as f:
-        for name, seq, _ in reads:
-            s = seq.decode()
-            f.write(f"@{name}\n{s}\n+\n{'I' * len(s)}\n")
+    fq = _write_fq(tmp_path / "r.fq", reads)
     out = tmp_path / "out.txt"
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    p = subprocess.run(
-        [sys.executable, "-m", "desamba_tpu_torch.cli", "classify",
-         "--device", "cpu", "-o", str(out), golden_index_dir, str(fq)],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", "-o", str(out),
+             golden_index_dir, fq)
     assert p.returncode == 0, p.stderr
     names = jax_cl.oi.ref_names
     exp = [f"{r.name}\t{names[r.ref_ID] if r.ref_ID >= 0 else '*'}\t"
            f"{r.direction}\t{r.score}\t{r.read_len}"
            for r in jax_cl.classify_batch(reads)]
     assert out.read_text().splitlines() == exp
+
+
+# the JAX CLI's stderr report, line by line (desamba_tpu/cli.py:243-246,
+# utils/timers.py:28-31, 51-54)
+_STDERR_LINES = [
+    ("processing", r"Processing file: \[(?P<path>.+)\]\."),
+    ("processed", r"(?P<n>\d+) sequences processed in \d+\.\d{3}s "
+                  r"\(\d+\.\d Kseq/m\)\."),
+    ("cpu", r"Classify CPU: \d+\.\d{3} sec"),
+    ("timer", r"(?P<name>\w+):\[\d+\.\d{6}\] n=(?P<n>\d+)"),
+    ("maxmem", r"Normal end program, MAX MEM:\[\d+\.\d{6}\]Gbp\."),
+    ("blank", r""),
+]
+
+
+# a runtime's own log record (glog format), which neither CLI writes
+_RUNTIME_LOG = re.compile(r"[IWEF]\d{4} \d\d:\d\d:\d\d\.\d+ +\d+ \S+:\d+\] ")
+
+
+def _stderr_shape(text):
+    """[(kind, fields)] of each stderr line, in order, runtime log records
+    left out; a line that fits no kind of the JAX CLI's report fails."""
+    out = []
+    for line in text.split("\n")[:-1]:
+        if _RUNTIME_LOG.match(line):
+            continue
+        for kind, pat in _STDERR_LINES:
+            m = re.fullmatch(pat, line)
+            if m:
+                out.append((kind, m.groupdict()))
+                break
+        else:
+            raise AssertionError(f"unexpected stderr line {line!r}")
+    return out
+
+
+def test_cli_stdout_and_stderr_match_jax_cli(tmp_path, golden_index_dir):
+    """Both CLIs on the same reads, with --timers: equal stdout; stderr
+    with the same lines in the same order (the timer lines, which sort by
+    time, as a set of names and counts), read_reads among the timers, and
+    the peak-RSS line and its blank line last."""
+    reads = _golden_reads()
+    fqs = [_write_fq(tmp_path / "a.fq", reads[:40]),
+           _write_fq(tmp_path / "b.fq", reads[40:])]
+    jp = _cli("desamba_tpu.cli", "--engine", "fast", "--timers",
+              golden_index_dir, *fqs)
+    tp = _cli("desamba_tpu_torch.cli", "--device", "cpu", "--timers",
+              golden_index_dir, *fqs)
+    assert jp.returncode == 0, jp.stderr
+    assert tp.returncode == 0, tp.stderr
+    assert tp.stdout == jp.stdout and len(tp.stdout.splitlines()) == 72
+    js, ts = _stderr_shape(jp.stderr), _stderr_shape(tp.stderr)
+    strip = lambda sh: [x for x in sh if x[0] != "timer"]
+    timers = lambda sh: sorted((f["name"], f["n"]) for k, f in sh
+                               if k == "timer")
+    assert strip(ts) == strip(js)
+    assert timers(ts) == timers(js)
+    assert ("read_reads", "2") in timers(ts)
+    assert [k for k, _ in ts][-5:] == ["timer"] * 3 + ["maxmem", "blank"]
+    assert ts[2] == ("processed", {"n": "72"})
+
+
+def test_cli_profile_writes_a_trace(tmp_path, golden_index_dir):
+    """--profile DIR leaves a torch.profiler trace in DIR and says where."""
+    fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:3])
+    prof = tmp_path / "prof"
+    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", "--profile",
+             str(prof), golden_index_dir, fq)
+    assert p.returncode == 0, p.stderr
+    traces = list(prof.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    assert f"torch profiler trace written to {traces[0]}" in p.stderr
+    assert len(p.stdout.splitlines()) == 3
+
+
+def test_cli_refuses_a_sharded_index(tmp_path, golden_index_dir):
+    """A directory with shards.json exits nonzero with one line that names
+    the missing genome-sharded engine, before anything is loaded."""
+    d = tmp_path / "sharded"
+    d.mkdir()
+    (d / "shards.json").write_text("{}")
+    fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:1])
+    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", str(d), fq)
+    assert p.returncode != 0
+    lines = p.stderr.splitlines()
+    assert len(lines) == 1 and "genome-sharded" in lines[0], p.stderr
+    assert "Traceback" not in p.stderr and "deSAMBA.bwt" not in p.stderr
+    assert p.stdout == ""
+
+
+def test_cli_reports_peak_memory_after_a_failure(tmp_path):
+    """A run that fails (here, an index directory without its files) still
+    prints the peak-RSS line in both CLIs."""
+    d = tmp_path / "empty"
+    d.mkdir()
+    fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:1])
+    maxmem = re.compile(_STDERR_LINES[4][1], re.M)
+    for args in (("desamba_tpu.cli", "--engine", "fast"),
+                 ("desamba_tpu_torch.cli", "--device", "cpu")):
+        p = _cli(*args, str(d), fq)
+        assert p.returncode != 0, args
+        assert maxmem.search(p.stderr), (args, p.stderr)

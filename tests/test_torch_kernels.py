@@ -214,6 +214,129 @@ def test_stage1_kernel_golden_rows(cuda, tables, W):
     assert int(ref[2].max()) > 1
 
 
+# ------------------------------------------------------------ stage 3 --
+def _lf_chains(lfc: np.ndarray, L: int, rounds: int):
+    """(steps, end) of the LF chain from each row in [0, L), walked with
+    numpy for `rounds` rounds: end 1 where it reached a sampled row
+    (row % 8 == 0), 2 where it met a char >= 4 first ('#', '$', pad), 0
+    where it is still walking."""
+    r = np.arange(L, dtype=np.int64)
+    steps = np.zeros(L, np.int64)
+    end = np.zeros(L, np.int64)
+    for _ in range(rounds):
+        end[(end == 0) & (r % 8 == 0)] = 1
+        walk = end == 0
+        w = lfc[np.clip(r, 0, lfc.size - 1)]
+        stop = walk & ((w >> 29) >= 4)
+        end[stop] = 2
+        go = walk & ~stop
+        r = np.where(go, w & ((1 << 29) - 1), r)
+        steps += go
+    return steps, end
+
+
+def locate_cases(fm, loc, seed=8):
+    """(fm', rows int32[n], valid bool[n], lanes) covering locate's edge
+    cases on the golden tables. fm' is fm with a few sa_uni and sa_off
+    entries rewritten; the locate tables stay the golden ones, whose
+    reflist already has unitigs with 0, 1 and more than 4 occurrences and
+    an end past refpos_global's. lanes maps each case to its lane indices:
+    - "invalid": invalid lanes at sampled rows and elsewhere;
+    - "edge": rows 0, L - 1, past L, past the table, negative and the
+      int32 ends (valid);
+    - "sentinel": chains that meet '#' or '$' before a sample;
+    - "steps23"/"steps24"/"steps25"/"steps26": chains that reach a
+      sample in exactly that many steps (24 is the most that max_lf=24
+      allows);
+    - "sa_uni": sample entries -1 and -3 (counted from the end), below
+      the start and past the end (clamped);
+    - "tie": positions equal to a unitig start (the right-side tie), to
+      the end of the last unitig, and wrapped past 2^31;
+    - "refs0"/"refs1"/"refs5": samples in unitigs with 0, 1 and at least
+      5 reference occurrences (P at most 5);
+    - "random": random rows, 85% of them valid."""
+    from desamba_tpu_torch.ops.fm import FmArrays
+
+    rng = np.random.default_rng(seed)
+    L, n_pad = fm.L, fm.pad.shape[0]
+    lfc = fm.lfc.cpu().numpy().view(np.uint32).astype(np.int64)
+    steps, end = _lf_chains(lfc, L, 40)
+    sa_uni = fm.sa_uni.cpu().numpy().copy()
+    sa_off = fm.sa_off.cpu().numpy().copy()
+    us = loc.uni_start.cpu().numpy().astype(np.int64)
+    ul = loc.uni_len.cpu().numpy().astype(np.int64)
+    refs = np.diff(loc.reflist.cpu().numpy().astype(np.int64))
+    n_us, n_ul = us.size, ul.size
+    s_new = rng.choice(np.arange(1, sa_uni.size), 11, replace=False)
+    groups, rows, valid = {}, [], []
+
+    def add(name, r, v=True):
+        r = np.asarray(r, np.int64)
+        groups[name] = np.arange(len(rows), len(rows) + r.size)
+        rows.extend(r.tolist())
+        valid.extend(np.broadcast_to(np.asarray(v, bool), r.shape).tolist())
+
+    sampled = 8 * rng.integers(0, L // 8, 6)
+    add("invalid", np.concatenate([sampled, rng.integers(0, L, 6),
+                                   [-8, L + 40]]), False)
+    add("edge", [0, 1, L - 1, L, L + 1, L + 8, n_pad - 1, n_pad, n_pad + 9,
+                 -1, -5, -8, -(2 ** 31), 2 ** 31 - 1])
+    sent = np.flatnonzero(end == 2)
+    add("sentinel", sent[rng.choice(sent.size, min(12, sent.size),
+                                     replace=False)])
+    for k in (23, 24, 25, 26):
+        ks = np.flatnonzero((end == 1) & (steps == k))
+        add(f"steps{k}", ks[:6])
+    # the sa_uni gather rule: -1 and -3 count from the end, the others
+    # clamp to the ends
+    sa_uni[s_new[:4]] = [-1, -3, -n_us - 5, n_us + 5]
+    add("sa_uni", 8 * s_new[:4])
+    # p = uni_start[uni0] + sa_off + k + 1 on a sampled row (k = 0): its
+    # own unitig's start, the next unitig's start, the end of the last
+    # unitig, and past 2^31 (wraps negative)
+    u0 = sa_uni[s_new[4:6]].astype(np.int64)
+    sa_off[s_new[4]] = -1
+    sa_off[s_new[5]] = ul[u0[1]]
+    sa_uni[s_new[6]], sa_off[s_new[6]] = n_ul - 1, ul[-1]
+    sa_uni[s_new[7]], sa_off[s_new[7]] = 0, 2 ** 31 - 1
+    add("tie", 8 * s_new[4:8])
+    for j, (name, u) in enumerate((
+            ("refs0", np.flatnonzero(refs == 0)[0]),
+            ("refs1", np.flatnonzero(refs == 1)[0]),
+            ("refs5", np.flatnonzero(refs >= 5)[0]))):
+        sa_uni[s_new[8 + j]], sa_off[s_new[8 + j]] = u, 0
+        add(name, [8 * s_new[8 + j]])
+    add("random", rng.integers(-16, n_pad + 16, 600), rng.random(600) < 0.85)
+    fm2 = FmArrays(fm.occ32, fm.pad, fm.rank, fm.hash13,
+                   torch.from_numpy(sa_uni).to(fm.sa_uni.device),
+                   torch.from_numpy(sa_off).to(fm.sa_off.device), fm.lfc,
+                   fm.L, fm.dollar_pos)
+    return (fm2, torch.tensor(rows, dtype=torch.int32),
+            torch.tensor(valid, dtype=torch.bool), groups)
+
+
+def check_locate_coverage(res, expand, groups, P):
+    """The cases of locate_cases reach what they are meant to: res is
+    resolve_rows' dict, expand expand_refpos' (ref, gpos, valid)."""
+    ok, st, u_off = res["ok"], res["steps"], res["u_off"]
+    g = {k: torch.from_numpy(v) for k, v in groups.items()}
+    assert not ok[g["invalid"]].any()
+    assert (st[g["invalid"]] == 0).all()
+    assert not ok[g["sentinel"]].any() and (st[g["sentinel"]] < 25).all()
+    for k in (23, 24):
+        assert len(g[f"steps{k}"]) and ok[g[f"steps{k}"]].all()
+        assert (st[g[f"steps{k}"]] == k).all()
+    for k in (25, 26):
+        assert len(g[f"steps{k}"]) and not ok[g[f"steps{k}"]].any()
+        assert (st[g[f"steps{k}"]] == 25).all()
+    assert ok[g["sa_uni"]].all() and ok[g["tie"]].all()
+    assert (u_off[g["tie"][:2]] == 0).all()
+    n_occ = expand[2].sum(1)
+    for name, want in (("refs0", 0), ("refs1", 1), ("refs5", P)):
+        assert ok[g[name]].all() and (n_occ[g[name]] == want).all(), name
+    assert 0 < int(ok[g["random"]].sum()) < len(g["random"])
+
+
 # --------------------------------------------------------- on the card --
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,W,steps", [(1, 256, 4096), (1000, 300, 2),
@@ -298,6 +421,50 @@ def test_band_score_kernel(cuda, B, W, K):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_locate_kernel_edge_cases(cuda, tables, P):
+    """The locate cases (locate_cases) on the card: kernel == plain on
+    all three outputs, and the cases reach what they are meant to."""
+    from desamba_tpu_torch.ops.locate import (LocArrays, expand_refpos,
+                                              locate, locate_plain,
+                                              resolve_rows)
+
+    fm, rows, valid, groups = locate_cases(_to(tables, cuda), tables[2])
+    loc = LocArrays(**{k: getattr(tables[2], k).to(cuda)
+                       for k in LocArrays.FIELDS})
+    rows, valid = rows.to(cuda), valid.to(cuda)
+    before = kernels.launches["locate"]
+    got = locate(fm, loc, rows, valid, P)
+    ref = locate_plain(fm, loc, rows, valid, P)
+    torch.cuda.synchronize()
+    assert kernels.launches["locate"] == before + 1
+    for name, g, r in zip(("ref", "gpos", "pvalid"), got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    res = {k: v.cpu() for k, v in resolve_rows(fm, loc, rows, valid).items()}
+    check_locate_coverage(res, [t.cpu() for t in ref], groups, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 86016])
+def test_locate_kernel_random_batch(cuda, tables, n):
+    """Random BWT rows over the whole table (90% valid) on the golden
+    tables, up to the smoke chunk's NC = 86,016 lanes."""
+    from desamba_tpu_torch.ops.locate import LocArrays, locate, locate_plain
+
+    fm = _to(tables, cuda)
+    loc = LocArrays(**{k: getattr(tables[2], k).to(cuda)
+                       for k in LocArrays.FIELDS})
+    rng = np.random.default_rng(n)
+    rows = torch.from_numpy(rng.integers(0, fm.L, n).astype(np.int32))
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    got = locate(fm, loc, rows.to(cuda), valid.to(cuda), 4)
+    ref = locate_plain(fm, loc, rows.to(cuda), valid.to(cuda), 4)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("ref", "gpos", "pvalid"), got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(cuda):
     from desamba_tpu_torch.ops.matchblock import band_score_packed
 
@@ -335,6 +502,37 @@ def test_stage1_cpu_route_and_input_checks(tables):
         a[i] = v
         with pytest.raises(ValueError):
             stage1(*a)
+
+
+def test_locate_cpu_route_and_input_checks(tables):
+    """On the CPU the locate wrapper runs locate_plain and counts nothing;
+    bad inputs raise on any device."""
+    import copy
+
+    from desamba_tpu_torch.ops.locate import locate, locate_plain
+
+    fm, rows, valid, _ = locate_cases(tables[0], tables[2])
+    loc = tables[2]
+    before = dict(kernels.launches)
+    for g, r in zip(locate(fm, loc, rows, valid, 4),
+                    locate_plain(fm, loc, rows, valid, 4)):
+        assert torch.equal(g, r)
+    assert kernels.launches == before
+    for bad_rows, bad_valid in ((rows.long(), valid), (rows, valid.int()),
+                                (rows[::2], valid[::2]),
+                                (rows, valid[:-1])):
+        with pytest.raises(ValueError):
+            locate(fm, loc, bad_rows, bad_valid, 4)
+    for field, t in (("refpos_refid", loc.refpos_refid[:-1]),
+                     ("uni_start", loc.uni_start[:-1]),
+                     ("reflist", loc.reflist[:0]),
+                     ("refpos_global", loc.refpos_global.long())):
+        loc2 = copy.copy(loc)
+        setattr(loc2, field, t)
+        with pytest.raises(ValueError):
+            locate(fm, loc2, rows, valid, 4)
+    with pytest.raises(ValueError):
+        locate(fm, loc, rows, valid, 0)
 
 
 def test_numpy_hashes_equal_the_u64_emulation():

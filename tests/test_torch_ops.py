@@ -351,6 +351,39 @@ def test_expand_refpos(golden_oracle_index, jtab, ttab):
             _eq(ref[i], got[i], f"P={P} [{i}]")
 
 
+@pytest.mark.parametrize("P", [1, 4])
+def test_locate_plain_equals_jax(jtab, ttab, P):
+    """locate_plain == JAX resolve_rows then expand_refpos, element for
+    element, on the locate cases (test_torch_kernels.locate_cases):
+    invalid lanes at sampled rows, rows at 0, L - 1, past L and negative,
+    chains that meet '#'/'$', chains of exactly 24 and 25 steps, sa_uni
+    entries that take the JAX gather rule, positions on a unitig start,
+    and unitigs with 0, 1 and more than P occurrences."""
+    import copy
+
+    from desamba_tpu.ops.locate import expand_refpos as jex
+    from desamba_tpu.ops.locate import resolve_rows as jrr
+    from desamba_tpu_torch.ops.locate import (expand_refpos, locate_plain,
+                                              resolve_rows)
+    from test_torch_kernels import check_locate_coverage, locate_cases
+
+    fm, rows, valid, groups = locate_cases(ttab[0], ttab[2])
+    jfm = copy.copy(jtab[0])
+    jfm.sa_uni = jnp.asarray(fm.sa_uni.numpy())
+    jfm.sa_off = jnp.asarray(fm.sa_off.numpy())
+    jr = jrr(jfm, jtab[2], rows.numpy(), valid.numpy())
+    ref = jex(jtab[2], jr["uni"], jr["u_off"], jr["ok"], P=P)
+    got = locate_plain(fm, ttab[2], rows, valid, P)
+    for name, a, b in zip(("ref", "gpos", "pvalid"), ref, got):
+        _eq(a, b, name)
+    res = resolve_rows(fm, ttab[2], rows, valid)
+    for k in ("pos", "uni", "u_off", "ok"):
+        _eq(jr[k], res[k], k)
+    check_locate_coverage(
+        res, expand_refpos(ttab[2], res["uni"], res["u_off"], res["ok"], P),
+        groups, P)
+
+
 # ------------------------------------------------------------ stage 4 --
 def _pack(codes, n_words):
     sh = 2 * (np.arange(16 * n_words) % 16).astype(np.uint32)
