@@ -28,8 +28,8 @@ Phases (any failure raises, and the script exits nonzero):
      classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
-     kernel must have launched (stage 1's and stage 3's once a chunk);
-     then three pure-device runs (reads/s) and
+     kernel must have launched (those of stages 0, 1, 3 and 4 once a
+     chunk); then three pure-device runs (reads/s) and
      the device-vs-native agreement through the port's binding of the
      native engine (gated at 0.99, bench.py's gate; truth accuracy)
   4. every read through a classifier running the plain versions
@@ -39,11 +39,11 @@ Phases (any failure raises, and the script exits nonzero):
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
      torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
-     and, for stage 1, the kernel's bound; stage 3's (locate + vote)
-     device time, span and launches per chunk; then one pure-device
-     classify_batch unprofiled and one under torch.profiler: device busy
-     share = kernel time over the unprofiled wall, and each hand kernel's
-     device time per launch as the path runs it
+     and, for stage 1, the kernel's bound; stages 0, 3 and 4's and the
+     fused chunk's device time, span and launches per chunk; then one
+     pure-device classify_batch unprofiled and one under torch.profiler:
+     device busy share = kernel time over the unprofiled wall, and each
+     hand kernel's device time per launch as the path runs it
 Prints a `kernels` JSON line, then {"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
@@ -71,18 +71,24 @@ SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
 # the CUDA function each kernel launches (its profiler rows)
 GLOBAL = {
+    "unpack": "unpack_kernel",
     "stage1": "stage1_kernel",
     "interval_search": "interval_search_kernel",
     "row_walks": "row_walks_kernel",
     "locate": "locate_kernel",
+    "band_windows": "band_windows_kernel",
     "band_score_packed": "band_score_kernel",
+    "combine": "combine_kernel",
 }
 REPLACES = {
+    "unpack": "desamba_tpu/engine/fast_engine.py:141",
     "stage1": "desamba_tpu/engine/fast_engine.py:203",
     "interval_search": "desamba_tpu/ops/fm.py:165",
     "row_walks": "desamba_tpu/ops/fm.py:261",
     "locate": "desamba_tpu/ops/locate.py:59",
+    "band_windows": "desamba_tpu/engine/fast_engine.py:420",
     "band_score_packed": "desamba_tpu/ops/matchblock.py:201",
+    "combine": "desamba_tpu/engine/fast_engine.py:452",
 }
 
 
@@ -207,9 +213,9 @@ def first_chunks(cl, reads) -> dict:
 
 def stage_calls(cl, packed, lens, ops):
     """Run stages 0-4 once on an encoded chunk. Returns ({stage: fn},
-    (stage 1's kernel arguments, its output)): each fn calls one stage on
-    the saved output of the stage before it, "fused" the whole
-    pipeline."""
+    (stage 1's kernel arguments, its output), (stage 2's output, nwR)):
+    each fn calls one stage on the saved output of the stage before it,
+    "fused" the whole pipeline."""
     import torch
 
     from desamba_tpu_torch.constants import ROWS_PER_SEARCH, _band
@@ -218,20 +224,19 @@ def stage_calls(cl, packed, lens, ops):
     ek = cl.ek
     s1, s2, s3, s4 = tfe.build_stages(ek.lek, ek.single_base_max,
                                       ek.mask_bits, 20, ek.n_words0, ops)
+    s0 = ops["unpack"]
     p = torch.from_numpy(packed).to(cl.device)
     ln = torch.from_numpy(lens).to(cl.device)
-    codes2, l2 = tfe.stage0_unpack(p, ln)
+    codes2, ci, rw, l2 = s0(p, ln)
     o1 = s1(ek.w01, codes2, l2)
-    ci = codes2.to(torch.int32)
     o2 = s2(cl.fm, ci, l2, *o1[:3])
     B2, W = codes2.shape
     nwR = o1[1].shape[1] * ROWS_PER_SEARCH
     o3 = s3(cl.fm, cl.loc, l2, *o2, B2=B2, nwR=nwR)
-    rw = tfe._read_words(p)
     K = 2 * _band(W) + 16
-    o4 = s4(cl.ra, rw, l2, *o3, B2=B2, K=K)
+    s4(cl.ra, rw, l2, *o3, B2=B2, K=K)
     fns = {
-        "0 unpack": lambda: tfe.stage0_unpack(p, ln),
+        "0 unpack": lambda: s0(p, ln),
         "1 probe+seeds": lambda: s1(ek.w01, codes2, l2),
         "2 FM search+walks": lambda: s2(cl.fm, ci, l2, *o1[:3]),
         "3 locate+vote": lambda: s3(cl.fm, cl.loc, l2, *o2, B2=B2, nwR=nwR),
@@ -240,7 +245,7 @@ def stage_calls(cl, packed, lens, ops):
     }
     s1_io = ((ek.w01, codes2, l2, ek.lek, ek.single_base_max, ek.mask_bits,
               ek.n_words0), o1)
-    return fns, s1_io
+    return fns, s1_io, (o2, nwR)
 
 
 def kernel_inputs(cl, packed, lens) -> dict:
@@ -268,9 +273,6 @@ def work(name: str, args, out) -> tuple[int, int]:
     from the inputs and outputs)."""
     import torch
 
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     if name == "stage1":
         from desamba_tpu_torch.constants import STEP_EK
         from desamba_tpu_torch.ops.ekmer import _probe_addrs
@@ -285,8 +287,7 @@ def work(name: str, args, out) -> tuple[int, int]:
         m = want.reshape(-1)
         wi1 = wi1[m]
         set1 = ((w01[wi1].to(torch.int64) >> sh1[m]) & 1).bool()
-        words = torch.cat([wi1, wi2[m][set1] + nw0])
-        sectors = torch.unique(words // (SECTOR // 4)).numel()
+        sectors = distinct_sectors(wi1, wi2[m][set1] + nw0)
         grid = out[0].numel()
         return (nbytes(codes2, l2, *out) + SECTOR * sectors,
                 grid * (4 * lek + 70))
@@ -304,11 +305,59 @@ def work(name: str, args, out) -> tuple[int, int]:
                 reads * 20)
     if name == "locate":
         return locate_work(*args, out)
+    if name == "unpack":
+        # a few operations a code: shift, mask, and the stores
+        return nbytes(*args, *out), out[0].numel() * 3
+    if name == "band_windows":
+        return band_windows_work(*args, out)
+    if name == "combine":
+        ra, score, q_st, q_ed, ref_c, diag_c = args
+        # ~30 int32 operations a candidate over the combine's passes (index,
+        # mask, compare, select), ~20 a read for its outputs
+        return (nbytes(score, q_st, q_ed, ref_c, diag_c, out)
+                + SECTOR * distinct_sectors(
+                    out[1].clamp(0, ra.ref_offset.shape[0] - 1)),
+                ref_c.numel() * 30 + out.shape[1] * 20)
     read_w, rlen, win_w, rel_lo, rel_hi, K = args
     # ~25 int32 operations per (row, read word, band offset): the SWAR
     # compare, masks and the 9-code run test
     return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
             read_w.numel() * K * 25)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def distinct_sectors(*idx) -> int:
+    """Distinct 32-byte sectors that gathers of 4-byte elements at these
+    indices touch."""
+    import torch
+
+    return torch.unique(torch.cat([i.reshape(-1).to(torch.int64)
+                                   for i in idx]) // (SECTOR // 4)).numel()
+
+
+def band_windows_work(ra, read_w2, lengths2, ref_c, diag_c, K,
+                      out) -> tuple[int, int]:
+    """(bytes, int32 operations) of the candidate-window gather: its
+    tensor inputs read once and its five outputs written once, plus each
+    distinct sector of ref_words_lsb that the windows read and of
+    ref_offset and ref_len that the bounds read, once (a sector that
+    windows share can come from L2). Operations: ~3 a word written, ~20 a
+    candidate."""
+    import torch
+
+    band = (K - 16) // 2
+    nw = out[2].shape[1]
+    g0a = (diag_c.reshape(-1) - band) & ~15
+    widx = ((g0a >> 4)[:, None] + torch.arange(
+        nw, dtype=torch.int32, device=g0a.device)).clamp(
+        0, ra.ref_words_lsb.shape[0] - 1)
+    rc0 = ref_c.clamp(0, ra.ref_offset.shape[0] - 1)
+    return (nbytes(read_w2, lengths2, ref_c, diag_c, *out)
+            + SECTOR * (distinct_sectors(widx) + 2 * distinct_sectors(rc0)),
+            3 * (out[0].numel() + out[2].numel()) + 20 * ref_c.numel())
 
 
 def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
@@ -328,14 +377,6 @@ def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
     import torch
 
     from desamba_tpu_torch.ops.locate import resolve_rows
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
-    def sectors(*idx):  # distinct 32-byte sectors of 4-byte elements
-        return torch.unique(torch.cat([i.reshape(-1).to(torch.int64)
-                                       for i in idx]) // (SECTOR // 4)
-                            ).numel()
 
     res = resolve_rows(fm, loc, rows, valid)
     # LF reads a lane makes: its steps, and one more where it met a
@@ -366,18 +407,74 @@ def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
         0, loc.refpos_global.shape[0] - 1)
     n_probes = sum(m.numel() for m in probed)
     return (nbytes(rows, valid, *out) + SECTOR * (
-                steps + 2 * sectors(s) + sectors(*probed)
-                + sectors(u.clamp(0, n_rl - 1), (u + 1).clamp(0, n_rl - 1))
-                + 2 * sectors(rp_c)),
+                steps + 2 * distinct_sectors(s) + distinct_sectors(*probed)
+                + distinct_sectors(u.clamp(0, n_rl - 1),
+                                   (u + 1).clamp(0, n_rl - 1))
+                + 2 * distinct_sectors(rp_c)),
             20 * steps + 6 * n_probes + rows.numel() * (40 + 10 * P))
 
 
-def bound(name: str, args, out) -> tuple[float, str]:
+def vote_work(cl, stage2_out, B2: int, nwR: int,
+              all_pairs: bool = False) -> tuple[int, int]:
+    """(bytes, int32 operations) of K7, stage 3's vote after locate, on a
+    chunk's stage-2 output: each valid anchor against every valid anchor
+    of its read row, the pairs the scores need (an invalid anchor's score
+    is -1, and no valid anchor matches an invalid one's ref), or with
+    all_pairs every pair of the dense [B2, A] rows, at 6 int32
+    operations a pair (compare the refs, subtract the diagonals, abs,
+    compare with tol, and, multiply-add the weight); bytes: locate's
+    outputs and the compacted lanes read once, the dense [B2, A] ref,
+    diagonal and weight arrays written once and the [B2, 3] candidates
+    out."""
+    import torch
+
+    from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR
+    from desamba_tpu_torch.ops.locate import locate_plain
+
+    fsp, hit, tot, qleft, sel = stage2_out
+    ref, gpos, pvalid = locate_plain(cl.fm, cl.loc, fsp, hit,
+                                     REFPOS_PER_ANCHOR)
+    n_valid = torch.zeros(B2 + 1, dtype=torch.int64, device=sel.device)
+    n_valid.index_add_(0, (sel // nwR).long(), pvalid.sum(1))
+    A = nwR * REFPOS_PER_ANCHOR
+    pairs = B2 * A * A if all_pairs else int((n_valid[:B2] ** 2).sum())
+    return (nbytes(ref, gpos, pvalid, tot, qleft, sel)
+            + 3 * 4 * B2 * A + 3 * 4 * B2 * 3, 6 * pairs)
+
+
+def compaction_work(S: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of K3, stage 2's capped compactions
+    around K1 and K2 (fast_engine.build_stages' stage2), from the number
+    of seed lanes S and the caps fast_engine.compaction_caps derives: each compaction reads its
+    live mask (1 byte a lane), writes its index list and gathers the
+    carry columns it keeps (read and written once, 4 bytes a value); each
+    scatter moves the kept columns back; the walks' row grid and stage 2's
+    five outputs are written once. ~10 int32 operations a lane of each
+    compaction (the prefix sum, the cap test, the scatter)."""
+    from desamba_tpu_torch.constants import ROWS_PER_SEARCH
+    from desamba_tpu_torch.engine.fast_engine import compaction_caps
+
+    NC2, NC3, NC, NCW, NCW2 = compaction_caps(S)
+    SR = S * ROWS_PER_SEARCH
+    # (lanes in, slots kept, int32 values a kept column: carry + params)
+    cuts = [(S, NC2, 8 + 4), (NC2, NC3, 8 + 4), (SR, NC, 4),
+            (NC, NCW, 5 + 2), (NCW, NCW2, 5 + 2)]
+    b = sum(n + 4 * k + 2 * 4 * k * v for n, k, v in cuts)
+    b += 2 * 4 * (5 * (NC3 + NC2) + 3 * (NCW2 + NCW))  # scatters back
+    b += SR * (4 * 4 + 1) + NC * (4 * 4 + 1)  # row grid, outputs
+    return b, 10 * sum(n for n, _, _ in cuts)
+
+
+def bound_of(b: int, ops: int) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
-    for the same work, the larger of the two."""
-    b, ops = work(name, args, out)
+    for b bytes and ops int32 operations, the larger of the two."""
     t_b, t_o = b / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def bound(name: str, args, out) -> tuple[float, str]:
+    """bound_of the kernel's work on these inputs."""
+    return bound_of(*work(name, args, out))
 
 
 def check_kernels(cap: dict) -> dict:
@@ -394,6 +491,11 @@ def check_kernels(cap: dict) -> dict:
                                       f"W={a[1].shape[1]} steps={a[7]}"),
         "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
         "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
+        "unpack": lambda a: f"Bp={a[0].shape[0]} W={2 * a[0].shape[1]}",
+        "band_windows": lambda a: (f"rows={a[3].shape[0]} C={a[3].shape[1]} "
+                                   f"W={16 * a[1].shape[1]} K={a[5]}"),
+        "combine": lambda a: (f"reads={a[4].shape[0] // 2} "
+                              f"C={a[4].shape[1]}"),
         "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
                                         f"W={16 * a[0].shape[1]} K={a[5]}"),
     }
@@ -431,12 +533,21 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
     stages = {}
     for W, (packed, lens, n_chunk) in chunks.items():
         row = {}
-        fns, s1_io = stage_calls(cl, packed, lens, KERNEL_OPS)
+        fns, s1_io, (o2, nwR) = stage_calls(cl, packed, lens, KERNEL_OPS)
         for name, fn in fns.items():
             dev, nk = device_ms(fn)
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
         row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
+        # the programs that are still plain torch (K3, K7) have no kernel
+        # to time, only their bounds: (ms, "bytes" or "operations")
+        B2 = 2 * packed.shape[0]
+        row["3 locate+vote"].update(
+            vote_bound=bound_of(*vote_work(cl, o2, B2, nwR)),
+            vote_bound_all_pairs=bound_of(*vote_work(cl, o2, B2, nwR,
+                                                     all_pairs=True)))
+        row["2 FM search+walks"]["compaction_bound"] = bound_of(
+            *compaction_work(s1_io[1][1].numel()))
         stages[f"W={W} ({n_chunk} reads)"] = row
     cl.exact_fallback = False
     torch.cuda.synchronize()
@@ -588,9 +699,11 @@ def main() -> int:
     launches = dict(kernels.launches)
     if not all(launches[k] > 0 for k in kernels.KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
-    # stage 1 and stage 3 each launch their kernel once a chunk
-    if launches["locate"] != launches["stage1"]:
-        raise AssertionError(f"locate was not launched once a chunk: "
+    # stages 0, 1, 3 and 4 launch each of their kernels once a chunk
+    once = ("unpack", "locate", "band_windows", "band_score_packed",
+            "combine")
+    if any(launches[k] != launches["stage1"] for k in once):
+        raise AssertionError(f"{once} were not each launched once a chunk: "
                              f"{launches}")
     print("launches per batch " + json.dumps(  # of the three runs
         {k: v / 3 for k, v in launches.items()}), flush=True)
@@ -653,10 +766,16 @@ def main() -> int:
     tg = where_time_goes(cl, chunks, reads, card)
     print("time " + json.dumps(tg), flush=True)
     for key, row in tg["stages"].items():
-        s3 = row["3 locate+vote"]
-        log(f"smoke: stage 3 at {key}: device {s3['device_ms']:.3f} ms, "
-            f"span {s3['span_ms']:.3f} ms, {s3['kernels_per_call']:.0f} "
-            f"launches a call")
+        for st in ("0 unpack", "3 locate+vote", "4 band rescore", "fused"):
+            r = row[st]
+            log(f"smoke: stage {st} at {key}: device {r['device_ms']:.3f} "
+                f"ms, span {r['span_ms']:.3f} ms, "
+                f"{r['kernels_per_call']:.0f} launches a call")
+        log(f"smoke: plain K7 (vote) at {key}: bound "
+            f"{row['3 locate+vote']['vote_bound']}, all pairs "
+            f"{row['3 locate+vote']['vote_bound_all_pairs']}; plain K3 "
+            f"(compactions): bound "
+            f"{row['2 FM search+walks']['compaction_bound']}")
     on_path = tg["batch"]["hand_kernels"]
 
     rows = [dict(name=k, route="cuda", source=kernels.source_path(k),

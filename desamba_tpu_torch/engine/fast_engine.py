@@ -3,7 +3,8 @@
 Counterpart of desamba_tpu/engine/fast_engine.py. The stages are the JAX
 package's, step for step, with the same static schedule and caps:
 
-  stage0  2-bit unpack of the per-read fwd|rc packed rows
+  stage0  2-bit unpack of the per-read fwd|rc packed rows (ops/unpack, a
+          hand CUDA kernel)
   stage1  exist-filter probe + per-window top seed (ops/seeds.stage1, a
           hand CUDA kernel)
   stage2  FM backward interval search from the hash13 head start and the
@@ -11,8 +12,10 @@ package's, step for step, with the same static schedule and caps:
           two loops are hand CUDA kernels)
   stage3  SA-sample resolution and reference positions (ops/locate.locate,
           a hand CUDA kernel) and the windowed diagonal vote
-  stage4  SWAR banded rescore (ops/matchblock; a hand CUDA kernel) and
-          the reference's odd/even tie order
+  stage4  candidate windows (ops/rescore.band_windows), SWAR banded
+          rescore (ops/matchblock) and the strand + candidate combine in
+          the reference's odd/even tie order (ops/rescore.combine), each a
+          hand CUDA kernel
 
 Every stage is integer-only, so a stage's output equals the JAX stage's
 element for element. Where JAX clamps an out-of-range gather index or
@@ -45,40 +48,29 @@ from ..ops.fm import (interval_search_plain, interval_search_state, iv_init,
 from ..ops.locate import locate as locate_op
 from ..ops.locate import locate_plain
 from ..ops.matchblock import band_score_packed, band_score_packed_plain
+from ..ops.rescore import (band_windows, band_windows_plain, combine,
+                           combine_plain)
 from ..ops.seeds import stage1 as stage1_op
 from ..ops.seeds import stage1_plain
+# stage 0's two steps, also under the JAX module's names
+from ..ops.unpack import read_words as _read_words  # noqa: F401
+from ..ops.unpack import stage0_unpack, unpack, unpack_plain  # noqa: F401
 
 I32 = torch.int32
 # the functions the stages call, by kernel name (kernels.KERNELS): the
 # wrappers, which launch the hand kernels on CUDA tensors, or their plain
 # torch versions on any device (to check the kernel path)
-KERNEL_OPS = dict(stage1=stage1_op, interval_search=interval_search_state,
+KERNEL_OPS = dict(unpack=unpack, stage1=stage1_op,
+                  interval_search=interval_search_state,
                   row_walks=row_walks_state, locate=locate_op,
-                  band_score_packed=band_score_packed)
-PLAIN_OPS = dict(stage1=stage1_plain, interval_search=interval_search_plain,
+                  band_windows=band_windows,
+                  band_score_packed=band_score_packed, combine=combine)
+PLAIN_OPS = dict(unpack=unpack_plain, stage1=stage1_plain,
+                 interval_search=interval_search_plain,
                  row_walks=row_walks_plain, locate=locate_plain,
-                 band_score_packed=band_score_packed_plain)
-
-
-def stage0_unpack(packed: torch.Tensor, lens: torch.Tensor):
-    """packed uint8[Bp, W//2] (per read row: W//4 bytes of forward codes,
-    then W//4 of reverse-complement codes, 4 codes per byte LSB-first) ->
-    (codes2 uint8[2Bp, W], lengths2 int32[2Bp]), fwd rows then rc rows."""
-    Bp, Wq2 = packed.shape
-    Wq = Wq2 // 2
-    both = torch.cat([packed[:, :Wq], packed[:, Wq:]], 0)
-    codes2 = torch.stack([(both >> s) & 3 for s in (0, 2, 4, 6)], 2)
-    lens = lens.to(I32)
-    return codes2.reshape(2 * Bp, 4 * Wq), torch.cat([lens, lens])
-
-
-def _read_words(packed: torch.Tensor) -> torch.Tensor:
-    """int32[2Bp, W/16] packed code words (uint32 bits, code t of each
-    word at bits 2t), fwd rows then rc: the wire bytes viewed as
-    little-endian 32-bit words."""
-    Wq = packed.shape[1] // 2
-    both = torch.cat([packed[:, :Wq], packed[:, Wq:]], 0).contiguous()
-    return both.view(I32)
+                 band_windows=band_windows_plain,
+                 band_score_packed=band_score_packed_plain,
+                 combine=combine_plain)
 
 
 def _compact(live: torch.Tensor, cap: int) -> torch.Tensor:
@@ -103,13 +95,23 @@ def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
     return out[:, :n]
 
 
+def compaction_caps(S: int) -> tuple[int, int, int, int, int]:
+    """Stage 2's compaction caps for S seed lanes: (NC2, NC3) of the
+    interval search's two resumes, then (NC, NCW, NCW2) of the row walks'
+    start over the S * ROWS_PER_SEARCH row grid and their two resumes."""
+    NC2, NC3 = max(128, S // 8), max(128, S // 32)
+    NC = max(256, S * ROWS_PER_SEARCH // 4)
+    NCW = max(128, NC // 4)
+    return NC2, NC3, NC, NCW, max(128, NCW // 4)
+
+
 def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                  nw0: int = 0, ops=KERNEL_OPS):
     """Returns (stage1, stage2, stage3, stage4) closed over the static
     exist-filter parameters; `ops` is KERNEL_OPS or PLAIN_OPS."""
-    s1, iv, rw, lc, bsp = (ops[k] for k in (
-        "stage1", "interval_search", "row_walks", "locate",
-        "band_score_packed"))
+    s1, iv, rw, lc, bw, bsp, cmb = (ops[k] for k in (
+        "stage1", "interval_search", "row_walks", "locate", "band_windows",
+        "band_score_packed", "combine"))
 
     def stage1(w01, codes2, lengths2):
         """(lo26, kidx, runlen, n_exist) of the STEP_EK probe grid."""
@@ -132,18 +134,17 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
         max_rst_a = torch.full((S,), ROWS_PER_SEARCH, dtype=I32, device=dev)
         l_min_a = torch.full((S,), min_match, dtype=I32, device=dev)
         l_max_a = torch.clamp(s_idx, max=13 + FM_EXT_CAP).to(I32)
+        NC2, NC3, NC, NCW, NCW2 = compaction_caps(S)
         # burst on all S lanes, compact the stragglers to S/8, resume,
         # compact to S/32, finish; lanes past a cap keep their carry
         st = iv(fm, codes_i, lane, max_rst_a, l_min_a, l_max_a,
                 iv_init(sp0, ep0, s_idx), IV_BURST)
-        NC2 = max(128, S // 8)
         sel2 = _compact(st[6] == 0, NC2)
         s2i = sel2.clamp(max=S - 1).long()
         st_c = st[:, s2i]
         st_c[6] |= (sel2 >= S).to(I32)
         mid_c = iv(fm, codes_i, lane[s2i], max_rst_a[s2i], l_min_a[s2i],
                    l_max_a[s2i], st_c, IV_MID)
-        NC3 = max(128, S // 32)
         sel3 = _compact(mid_c[6] == 0, NC3)
         s3i = sel3.clamp(max=NC2 - 1).long()
         st_c3 = mid_c[:, s3i]
@@ -168,7 +169,6 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
         ptr_r = res_ptr.repeat_interleave(R)
         rem_r = torch.clamp(s_idx - ml0, min=0).repeat_interleave(R)
         SR = S * R
-        NC = max(256, SR // 4)
         sel = _compact(rvalid, NC)
         sval = sel < SR
         seli = sel.clamp(max=SR - 1).long()
@@ -176,14 +176,12 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
         wlanes = lane_r[seli]
         stw = rw(fm, codes_i, wlanes, wlens, rw_init(rows[seli], ptr_r[seli]),
                  WALK_BURST)
-        NCW = max(128, NC // 4)
         selw = _compact(stw[3] == 0, NCW)
         swi = selw.clamp(max=NC - 1).long()
         stw_c = stw[:, swi]
         stw_c[3] |= (selw >= NC).to(I32)
         wlanes2, wlens2 = wlanes[swi], wlens[swi]
         st2 = rw(fm, codes_i, wlanes2, wlens2, stw_c, WALK_MID)
-        NCW2 = max(128, NCW // 4)
         selw2 = _compact(st2[3] == 0, NCW2)
         swi2 = selw2.clamp(max=NCW - 1).long()
         st2_c = st2[:, swi2]
@@ -258,65 +256,11 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                K: int):
         """Banded rescore of every candidate and the strand + candidate
         combine with the reference's tie order. K is the full band-score
-        width 2*band + 16 (band start aligned down to a 16-code word)."""
-        dev = ref_c.device
-        W = 16 * read_w2.shape[1]
-        C = ref_c.shape[1]
-        band = (K - 16) // 2
-        ref_f = ref_c.reshape(-1)
-        diag_f = diag_c.reshape(-1)
-        lane_f = torch.arange(B2, device=dev).repeat_interleave(C)
-        g0a = (diag_f - band) & ~15
-        nw = W // 16 + K // 16 + 1
-        total_w = ra.ref_words_lsb.shape[0]
-        widx = (g0a >> 4)[:, None] + torch.arange(nw, dtype=I32, device=dev)
-        win_w = ra.ref_words_lsb[widx.clamp(0, total_w - 1).long()]
-        n_ref = ra.ref_offset.shape[0]
-        rc0 = ref_f.clamp(0, n_ref - 1).long()
-        lo = ra.ref_offset[rc0]
-        hi = lo + ra.ref_len[rc0]
-        ok = ref_f >= 0
-        rel_lo = torch.where(ok, lo - g0a, 0).to(I32)
-        rel_hi = torch.where(ok, hi - g0a, 0).to(I32)
-        bs = bsp(read_w2[lane_f].contiguous(), lengths2[lane_f].contiguous(),
-                 win_w.contiguous(), rel_lo, rel_hi, K)
-        B = B2 // 2
-
-        def fold(x):  # [B2, C] -> [B, 2C]: fwd candidates then rc
-            return torch.cat([x[:B], x[B:]], 1)
-
-        score4 = fold(bs["score"].reshape(B2, C))
-        q_st = fold(bs["q_st"].reshape(B2, C))
-        q_ed = fold(bs["q_ed"].reshape(B2, C))
-        ref2 = fold(ref_c)
-        diag2 = fold(diag_c)
-        score4 = torch.where(ref2 >= 0, score4, -1)
-        # the reference's tie order (cly.c:62): an odd best score takes
-        # the highest tied ref_ID, an even one the lowest
-        s_max = score4.amax(1)
-        odd = (s_max & 1) == 1
-        at_max = score4 == s_max[:, None]
-        r_hi = torch.where(at_max, ref2, -1).amax(1)
-        r_lo = torch.where(at_max, ref2, n_ref + 1).amin(1)
-        r_best = torch.where(odd, r_hi, r_lo)
-        chosen = at_max & (ref2 == r_best[:, None])
-        cb = torch.argmax(chosen.to(I32), 1, keepdim=True)
-        ref_b = torch.where(s_max > 0, ref2.gather(1, cb)[:, 0], -1)
-        rc = ref_b.clamp(0, n_ref - 1).long()
-        pos = (diag2.gather(1, cb)[:, 0] + q_st.gather(1, cb)[:, 0]
-               - ra.ref_offset[rc])
-        other = (ref2 != ref_b[:, None]) & (ref2 >= 0)
-        score_alt = torch.where(other, score4, -1).amax(1)
-        cb = cb[:, 0]
-        return dict(
-            score=torch.clamp(s_max, min=0),
-            ref=ref_b,
-            direction=torch.where(cb >= C, 0, 1),  # 1 = forward (cly.h)
-            cov=torch.clamp(q_ed.gather(1, cb[:, None])[:, 0]
-                            - q_st.gather(1, cb[:, None])[:, 0], min=0),
-            pos=torch.where(ref_b >= 0, pos, -1),
-            score_alt=torch.clamp(score_alt, min=0),
-        )
+        width 2*band + 16 (band start aligned down to a 16-code word).
+        Returns {PACK_KEYS[i]: row i} of the combine's int32[6, B]."""
+        bs = bsp(*bw(ra, read_w2, lengths2, ref_c, diag_c, K), K)
+        out = cmb(ra, bs["score"], bs["q_st"], bs["q_ed"], ref_c, diag_c)
+        return dict(zip(PACK_KEYS, out))
 
     return stage1, stage2, stage3, stage4
 
@@ -326,22 +270,21 @@ def build_full(lek: int, sbm: int, mask_bits: int, min_match: int,
     """The whole pipeline (stage 0, stages 1-4, result pack) as one call:
     full(fm, loc, ra, w01, packed, lens) -> int32[7, Bp]."""
     s1, s2, s3, s4 = build_stages(lek, sbm, mask_bits, min_match, nw0, ops)
+    s0 = ops["unpack"]
 
     def full(fm, loc, ra, w01, packed, lens):
-        codes2, lengths2 = stage0_unpack(packed, lens)
+        codes2, codes_i, read_w2, lengths2 = s0(packed, lens)
         lo26, kidx, runlen, n_exist = s1(w01, codes2, lengths2)
-        codes_i = codes2.to(I32)
         fsp, hit, tot, qleft, sel = s2(fm, codes_i, lengths2, lo26, kidx,
                                        runlen)
         B2, W = codes2.shape
         nwR = kidx.shape[1] * ROWS_PER_SEARCH
         ref_c, diag_c, vote_c = s3(fm, loc, lengths2, fsp, hit, tot, qleft,
                                    sel, B2=B2, nwR=nwR)
-        out = s4(ra, _read_words(packed), lengths2, ref_c, diag_c, vote_c,
-                 B2=B2, K=2 * _band(W) + 16)
+        out = s4(ra, read_w2, lengths2, ref_c, diag_c, vote_c, B2=B2,
+                 K=2 * _band(W) + 16)
         B = B2 // 2
-        ne = n_exist[:B] + n_exist[B:]
-        return torch.stack([out[k].to(I32) for k in PACK_KEYS] + [ne])
+        return torch.stack([*out.values(), n_exist[:B] + n_exist[B:]])
 
     return full
 

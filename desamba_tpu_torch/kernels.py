@@ -31,6 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # kernel name -> (source file, C entry point, argtypes), in pipeline order
 KERNELS = {
+    "unpack": (
+        "unpack.cu", "dsb_unpack", [_P, _P, _LL, _LL, _P, _P, _P, _P, _P]),
     "stage1": (
         "stage1.cu", "dsb_stage1",
         [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
@@ -44,9 +46,16 @@ KERNELS = {
         "locate.cu", "dsb_locate",
         [_P, _LL, _LL, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _P,
          _P, _LL, _I, _I, _P, _P, _P, _P]),
+    "band_windows": (
+        "rescore.cu", "dsb_band_windows",
+        [_P, _P, _P, _P, _P, _LL, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P,
+         _P, _P, _P, _P, _P]),
     "band_score_packed": (
         "band_score.cu", "dsb_band_score",
         [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P]),
+    "combine": (
+        "rescore.cu", "dsb_combine",
+        [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -142,6 +142,36 @@ def test_stage3_plain_ops_equal_jax(chunk, torch_cl):
         _eq(a, b, f"stage3[{i}]")
 
 
+def test_stage0_and_stage4_plain_ops_equal_jax(chunk, torch_cl):
+    """unpack_plain equals JAX stage0_unpack, its int32 codes and
+    _read_words, and stage 4 built with PLAIN_OPS equals JAX's stage 4, on
+    the golden chunk."""
+    import jax.numpy as jnp
+
+    from desamba_tpu.engine.fast_engine import _read_words
+    from desamba_tpu_torch.constants import _band
+    from desamba_tpu_torch.engine import fast_engine as tfe
+
+    packed, lens_p = chunk["packed"]
+    codes2, l2 = chunk["stage0"][0]
+    got = tfe.unpack_plain(torch.from_numpy(packed), torch.from_numpy(lens_p))
+    ref = (codes2, codes2.astype(jnp.int32),
+           _read_words(jnp.asarray(packed)), l2)
+    for i, (a, b) in enumerate(zip(ref, got, strict=True)):
+        b = b.numpy()
+        _eq(a, b.view(np.uint32) if i == 2 else b, f"unpack[{i}]")
+    ek = torch_cl.ek
+    s4 = tfe.build_stages(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                          ek.n_words0, ops=tfe.PLAIN_OPS)[3]
+    B2, W = got[0].shape
+    out = s4(torch_cl.ra, got[2], got[3], *chunk["stage3"][1], B2=B2,
+             K=2 * _band(W) + 16)
+    ref4 = chunk["stage4"][0]
+    assert set(out) == set(ref4)
+    for k in ref4:
+        _eq(ref4[k], out[k], f"stage4[{k}]")
+
+
 def test_stage2_has_live_hits(chunk):
     """The stage-2 comparison is not vacuous: the chunk yields anchors."""
     _, got = chunk["stage2"]

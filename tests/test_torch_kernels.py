@@ -337,6 +337,205 @@ def check_locate_coverage(res, expand, groups, P):
     assert 0 < int(ok[g["random"]].sum()) < len(g["random"])
 
 
+# ---------------------------------------------------- stages 0 and 4 --
+I32_MIN, I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def pack_wire(fwd, rc):
+    """Wire rows uint8[B, W/2] of code rows fwd and rc (uint8[B, W]): the
+    forward codes, then the rc codes, 4 a byte, LSB first."""
+    c = np.concatenate([fwd, rc], 1)
+    return (c[:, 0::4] | (c[:, 1::4] << 2) | (c[:, 2::4] << 4)
+            | (c[:, 3::4] << 6)).astype(np.uint8)
+
+
+def wire_batch(Bp, W, seed):
+    """(packed uint8[Bp, W/2], lens int32[Bp]) of random bytes at random
+    lengths, with lengths 0 (padding rows, one of them all zero bytes as
+    the encoder leaves it, one of random bytes), 1, W - 1 and W."""
+    rng = np.random.default_rng(seed)
+    packed = rng.integers(0, 256, (Bp, W // 2), dtype=np.uint8)
+    lens = rng.integers(0, W + 1, Bp).astype(np.int32)
+    edge = [0, 0, 1, W - 1, W]
+    k = min(Bp, len(edge))
+    lens[:k] = edge[:k]
+    if Bp > 1:
+        packed[1] = 0
+    return packed, lens
+
+
+def ref_codes(ra):
+    """uint8 codes of the concatenated reference of RefArrays ra."""
+    w = ra.ref_words_lsb.cpu().numpy().view(np.uint32)
+    sh = 2 * np.arange(16, dtype=np.uint32)
+    return ((w[:, None] >> sh) & 3).astype(np.uint8).reshape(-1)
+
+
+def band_scores(ra, packed, lens, ref_c, diag_c, K):
+    """int32[2B, C] band scores of the candidates (the plain versions)."""
+    from desamba_tpu_torch.ops.matchblock import band_score_packed_plain
+    from desamba_tpu_torch.ops.rescore import band_windows_plain
+    from desamba_tpu_torch.ops.unpack import unpack_plain
+
+    _, _, rw, l2 = unpack_plain(torch.from_numpy(packed),
+                                torch.from_numpy(lens))
+    bs = band_score_packed_plain(*band_windows_plain(
+        ra, rw, l2, torch.from_numpy(ref_c), torch.from_numpy(diag_c), K), K)
+    return bs["score"].reshape(ref_c.shape).numpy()
+
+
+def stage4_cases(ra, W, n_random=24, seed=4):
+    """Stage-4 inputs at width W on the reference tables ra (on the CPU):
+    (packed uint8[B, W/2], lens int32[B], ref_c int32[2B, 3], diag_c
+    int32[2B, 3], groups {case: read indices}); candidate rows b (forward)
+    and B + b (rc) belong to read b. The cases:
+    - "tie_odd_fwd", "tie_odd_rc", "tie_even_fwd", "tie_even_rc": two
+      refs tie at the best score, odd or even, and the tie order picks a
+      candidate on the forward or the rc strand; the read is two halves
+      copied from the two refs, drawn until their scores tie;
+    - "all_invalid": every candidate of both strands is -1;
+    - "int32_ends": diagonals at the int32 ends and within the band of
+      them (the aligned band start and rel_lo wrap);
+    - "ref_edges": refs 0, n_ref - 1 and past n_ref on diagonals that
+      match the read, and -1;
+    - "random": reads copied from a random ref with 8% errors, candidates
+      near the true diagonal on random refs."""
+    from desamba_tpu_torch.constants import _band
+
+    rng = np.random.default_rng(seed)
+    C, band = 3, _band(W)
+    K = 2 * band + 16
+    codes = ref_codes(ra)
+    off = ra.ref_offset.numpy().astype(np.int64)
+    ln = ra.ref_len.numpy().astype(np.int64)
+    n_ref = off.size
+    reads, groups = [], {}
+
+    def add(name, fwd, rc, length, refs, diags):
+        """refs, diags: [fwd candidates, rc candidates]"""
+        groups.setdefault(name, []).append(len(reads))
+        reads.append((fwd, rc, length, refs, diags))
+
+    def rand_codes():
+        return rng.integers(0, 4, W).astype(np.uint8)
+
+    def inside(r, span):  # a global position of ref r with span codes after
+        return int(off[r] + rng.integers(band, ln[r] - span - band))
+
+    def any_diag():
+        return rng.integers(I32_MIN, I32_MAX, C, endpoint=True).tolist()
+
+    none = [-1] * C
+    for parity in (1, 0):
+        m = 40 + parity
+        for _ in range(500):
+            a, b = sorted(rng.choice(n_ref, 2, replace=False).tolist())
+            ga, gb = inside(a, 2 * m), inside(b, 2 * m)
+            f = rand_codes()
+            f[:m] = codes[ga : ga + m]
+            f[m : 2 * m] = codes[gb : gb + m]
+            da, db = ga, gb - m
+            s = band_scores(ra, pack_wire(f[None], f[None]),
+                            np.array([2 * m], np.int32),
+                            np.array([[a, b, -1], none], np.int32),
+                            np.array([[da, db, 0], [0] * C], np.int32), K)
+            if s[0, 0] == s[0, 1] > 0 and s[0, 0] % 2 == parity:
+                break
+        else:
+            raise AssertionError("no tie found")
+        name = "odd" if parity else "even"
+        # odd: the highest tied ref (b) wins, even: the lowest (a)
+        win, lose = ((b, db), (a, da)) if parity else ((a, da), (b, db))
+        add(f"tie_{name}_fwd", f, f, 2 * m,
+            [[lose[0], win[0], -1], [-1, -1, win[0]]],
+            [[lose[1], win[1], 0], [0, 0, win[1]]])
+        add(f"tie_{name}_rc", f, f, 2 * m,
+            [[lose[0], -1, -1], [-1, win[0], -1]],
+            [[lose[1], 0, 0], [0, win[1], 0]])
+    add("all_invalid", rand_codes(), rand_codes(), W, [none, none],
+        [any_diag(), any_diag()])
+    add("all_invalid", rand_codes(), rand_codes(), W // 2, [none, none],
+        [[I32_MIN, I32_MAX, 0], [I32_MIN + band - 1, I32_MAX - band, -1]])
+    add("int32_ends", rand_codes(), rand_codes(), W,
+        [[0, n_ref - 1, 1], [n_ref - 1, 0, n_ref + 2]],
+        [[I32_MIN, I32_MIN + band - 1, I32_MIN + band + 40],
+         [I32_MAX, I32_MAX - band + 1, I32_MAX - 7]])
+    add("int32_ends", rand_codes(), rand_codes(), W - 3,
+        [[n_ref - 1, 0, n_ref - 1], [-1, 1, 0]],
+        [[I32_MIN + 3, I32_MIN + band, I32_MIN + band + 15],
+         [I32_MIN, I32_MAX - 15, I32_MAX - band - 16]])
+    for k in range(2):
+        gl = inside(n_ref - 1, W)
+        g0 = inside(0, W)
+        f = codes[gl : gl + W].copy()
+        r = rand_codes()
+        r[: W // 2] = codes[g0 : g0 + W // 2]
+        add("ref_edges", f, r, W - 5 * k,
+            [[n_ref - 1, n_ref + 4, 0], [n_ref, -1, 0]],
+            [[gl, gl, g0], [gl, gl, g0]])
+    for _ in range(n_random):
+        r0 = int(rng.integers(n_ref))
+        g = inside(r0, W)
+        f = codes[g : g + W].copy()
+        err = rng.random(W) < 0.08
+        f[err] = rng.integers(0, 4, int(err.sum()))
+        refs = rng.choice([-1, r0, r0, int(rng.integers(n_ref + 1))],
+                          (2, C)).tolist()
+        diags = (g + rng.integers(-band, band + 1, (2, C))).tolist()
+        add("random", f, rand_codes(), int(rng.integers(W // 2, W + 1)),
+            refs, diags)
+    fwd = np.stack([x[0] for x in reads])
+    rc = np.stack([x[1] for x in reads])
+    lens = np.array([x[2] for x in reads], np.int32)
+    ref_c = np.array([x[3][0] for x in reads] + [x[3][1] for x in reads],
+                     np.int32)
+    diag_c = np.array([x[4][0] for x in reads] + [x[4][1] for x in reads],
+                      np.int64).astype(np.int32)
+    return (pack_wire(fwd, rc), lens, ref_c, diag_c,
+            {k: np.array(v) for k, v in groups.items()})
+
+
+def check_stage4_coverage(ra, packed, lens, ref_c, diag_c, groups, K):
+    """The cases of stage4_cases reach what they are meant to."""
+    from desamba_tpu_torch.ops.rescore import combine_plain
+
+    B = lens.size
+    band = (K - 16) // 2
+    n_ref = ra.ref_offset.shape[0]
+    s = band_scores(ra, packed, lens, ref_c, diag_c, K)
+    d = diag_c.astype(np.int64)
+    ok = ref_c >= 0
+    # the aligned band start wraps; rel_lo = lo - g0a wraps
+    assert (ok & (d - band < I32_MIN)).any()
+    g0a = (((d - band) & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    g0a &= ~15
+    lo = ra.ref_offset.numpy().astype(np.int64)[np.clip(ref_c, 0, n_ref - 1)]
+    assert (ok & ((lo - g0a > I32_MAX) | (lo - g0a < I32_MIN))).any()
+    assert (d == I32_MIN).any() and (d == I32_MAX).any()
+    assert {-1, 0, n_ref - 1} <= set(ref_c.ravel().tolist())
+    assert (s[ref_c >= n_ref] > 0).any()
+    inv = (ref_c[:B] < 0).all(1) & (ref_c[B:] < 0).all(1)
+    assert inv[groups["all_invalid"]].all()
+    # the ties: two refs or more at the best score, and where the pick is
+    ref2 = np.concatenate([ref_c[:B], ref_c[B:]], 1)
+    s4 = np.where(ref2 >= 0, np.concatenate([s[:B], s[B:]], 1), -1)
+    s_max = s4.max(1)
+    n_at = np.array([len(set(ref2[i][s4[i] == s_max[i]].tolist()))
+                     for i in range(B)])
+    out = combine_plain(ra, torch.from_numpy(s.reshape(-1).copy()),
+                        torch.zeros(s.size, dtype=torch.int32),
+                        torch.zeros(s.size, dtype=torch.int32),
+                        torch.from_numpy(ref_c), torch.from_numpy(diag_c))
+    fwd = out[2].numpy() == 1
+    for name, odd, on_fwd in (("tie_odd_fwd", 1, True),
+                              ("tie_odd_rc", 1, False),
+                              ("tie_even_fwd", 0, True),
+                              ("tie_even_rc", 0, False)):
+        i = groups[name]
+        assert (n_at[i] >= 2).all() and (s_max[i] > 0).all(), name
+        assert (s_max[i] % 2 == odd).all() and (fwd[i] == on_fwd).all(), name
+
+
 # --------------------------------------------------------- on the card --
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,W,steps", [(1, 256, 4096), (1000, 300, 2),
@@ -465,6 +664,173 @@ def test_locate_kernel_random_batch(cuda, tables, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("Bp,W", [(1, 16), (7, 256), (33, 3072),
+                                  (4096, 2048)])
+def test_unpack_kernel(cuda, Bp, W):
+    """Random wire rows with padding rows, up to the smoke's chunk."""
+    from desamba_tpu_torch.ops.unpack import unpack, unpack_plain
+
+    packed, lens = wire_batch(Bp, W, seed=Bp + W)
+    args = (torch.from_numpy(packed).to(cuda), torch.from_numpy(lens).to(cuda))
+    before = kernels.launches["unpack"]
+    got = unpack(*args)
+    ref = unpack_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["unpack"] == before + 1
+    for name, g, r in zip(("codes2", "codes_i", "read_w2", "lengths2"), got,
+                          ref, strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+
+
+def _ra_to(ra, dev):
+    from desamba_tpu_torch.ops.refwin import RefArrays
+
+    return RefArrays(ra.ref_words_lsb.to(dev), ra.ref_offset.to(dev),
+                     ra.ref_len.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [256, 2048, 3072])
+def test_stage4_kernels_edge_cases(cuda, tables, W):
+    """The stage-4 cases (stage4_cases) on the card: band_windows and
+    combine each equal their plain version, and stage 4 on the kernels
+    equals stage 4 on the plain versions."""
+    from desamba_tpu_torch.constants import _band
+    from desamba_tpu_torch.engine import fast_engine as tfe
+    from desamba_tpu_torch.ops.rescore import (band_windows,
+                                               band_windows_plain, combine,
+                                               combine_plain)
+    from desamba_tpu_torch.ops.unpack import unpack_plain
+
+    packed, lens, ref_c, diag_c, groups = stage4_cases(tables[3], W)
+    K = 2 * _band(W) + 16
+    check_stage4_coverage(tables[3], packed, lens, ref_c, diag_c, groups, K)
+    ra = _ra_to(tables[3], cuda)
+    _, _, rw, l2 = unpack_plain(torch.from_numpy(packed).to(cuda),
+                                torch.from_numpy(lens).to(cuda))
+    rc_t, dc_t = (torch.from_numpy(ref_c).to(cuda),
+                  torch.from_numpy(diag_c).to(cuda))
+    before = dict(kernels.launches)
+    got = band_windows(ra, rw, l2, rc_t, dc_t, K)
+    ref = band_windows_plain(ra, rw, l2, rc_t, dc_t, K)
+    for name, g, r in zip(("read_w", "rlen", "win_w", "rel_lo", "rel_hi"),
+                          got, ref, strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r), name
+    bs = tfe.band_score_packed_plain(*ref, K)
+    cargs = (ra, bs["score"], bs["q_st"], bs["q_ed"], rc_t, dc_t)
+    assert torch.equal(combine(*cargs), combine_plain(*cargs))
+    B2 = ref_c.shape[0]
+    s4 = [tfe.build_stages(16, 12, 20, 20, ops=ops)[3]
+          for ops in (tfe.KERNEL_OPS, tfe.PLAIN_OPS)]
+    outs = [f(ra, rw, l2, rc_t, dc_t, None, B2=B2, K=K) for f in s4]
+    torch.cuda.synchronize()
+    assert list(outs[0]) == list(outs[1])
+    for k in outs[0]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    for k in ("band_windows", "combine"):
+        assert kernels.launches[k] == before[k] + 2, k
+    assert kernels.launches["band_score_packed"] == (
+        before["band_score_packed"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B2,W", [(2, 256), (130, 3072), (8192, 2048)])
+def test_band_windows_kernel_random(cuda, tables, B2, W):
+    """Random candidates, up to the smoke chunk's 8,192 rows: refs in
+    [-1, n_ref], diagonals over the reference, past both ends and at
+    random int32 values."""
+    from desamba_tpu_torch.constants import _band
+    from desamba_tpu_torch.ops.rescore import band_windows, band_windows_plain
+
+    rng = np.random.default_rng(B2)
+    ra = _ra_to(tables[3], cuda)
+    n_ref, total = ra.ref_offset.shape[0], 16 * ra.ref_words_lsb.shape[0]
+    ref_c = rng.integers(-1, n_ref + 1, (B2, 3)).astype(np.int32)
+    diag_c = rng.integers(-500, total + 500, (B2, 3)).astype(np.int32)
+    wild = rng.random((B2, 3)) < 0.1
+    diag_c[wild] = rng.integers(I32_MIN, I32_MAX, int(wild.sum()),
+                                endpoint=True)
+    rw = torch.from_numpy(rng.integers(I32_MIN, I32_MAX, (B2, W // 16),
+                                       endpoint=True).astype(np.int32))
+    l2 = torch.from_numpy(rng.integers(0, W + 1, B2).astype(np.int32))
+    args = [t.to(cuda) for t in (rw, l2, torch.from_numpy(ref_c),
+                                 torch.from_numpy(diag_c))]
+    K = 2 * _band(W) + 16
+    got = band_windows(ra, *args, K)
+    ref = band_windows_plain(ra, *args, K)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref, strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def _combine_inputs(B, C, n_ref, seed, dev):
+    """Random combine inputs on synthetic reference offsets: scores in a
+    small range (many ties), refs in [-1, n_ref + 1], q_st, q_ed, diag and
+    offsets over the whole int32 range in a tenth of the candidates (the
+    pos and cov arithmetic wraps)."""
+    from desamba_tpu_torch.ops.refwin import RefArrays
+
+    rng = np.random.default_rng(seed)
+    n = 2 * B * C
+
+    def i32(lo, hi, shape):
+        return rng.integers(lo, hi, shape, endpoint=True).astype(np.int32)
+
+    score = i32(0, 6, n)
+    q_st, q_ed = i32(0, 2048, n), i32(-1, 2048, n)
+    diag = i32(0, 1 << 20, n)
+    for a in (q_st, q_ed, diag):
+        m = rng.random(n) < 0.1
+        a[m] = i32(I32_MIN, I32_MAX, int(m.sum()))
+    ref_c = i32(-1, n_ref + 1, (2 * B, C))
+    off = i32(0, I32_MAX, n_ref)
+    ra = RefArrays(torch.zeros(4, dtype=torch.int32, device=dev),
+                   torch.from_numpy(off).to(dev),
+                   torch.ones(n_ref, dtype=torch.int32, device=dev))
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return (ra, t(score), t(q_st), t(q_ed), t(ref_c),
+            t(diag.reshape(2 * B, C)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,n_ref", [(1, 1, 1), (1, 3, 2), (77, 3, 3),
+                                       (4096, 3, 89), (300, 5, 4)])
+def test_combine_kernel_random(cuda, B, C, n_ref):
+    from desamba_tpu_torch.ops.rescore import combine, combine_plain
+
+    args = _combine_inputs(B, C, n_ref, B + C, cuda)
+    got = combine(*args)
+    ref = combine_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_stage_0_and_4_wrappers_reject_other_devices(cuda, tables):
+    """A table or an input on another device than the first input raises
+    before anything launches."""
+    from desamba_tpu_torch.ops.rescore import band_windows, combine
+    from desamba_tpu_torch.ops.unpack import unpack
+
+    packed, lens = wire_batch(4, 256, seed=1)
+    with pytest.raises(ValueError):
+        unpack(torch.from_numpy(packed).to(cuda), torch.from_numpy(lens))
+    ra_cpu = tables[3]
+    rw = torch.zeros((4, 16), dtype=torch.int32, device=cuda)
+    z = torch.zeros(4, dtype=torch.int32, device=cuda)
+    c = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        band_windows(ra_cpu, rw, z, c, c, 80)
+    with pytest.raises(ValueError):
+        band_windows(_ra_to(ra_cpu, cuda), rw, z.cpu(), c, c, 80)
+    s = torch.zeros(12, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        combine(ra_cpu, s, s, s, c, c)
+    with pytest.raises(ValueError):
+        combine(_ra_to(ra_cpu, cuda), s, s.cpu(), s, c, c)
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(cuda):
     from desamba_tpu_torch.ops.matchblock import band_score_packed
 
@@ -533,6 +899,84 @@ def test_locate_cpu_route_and_input_checks(tables):
             locate(fm, loc2, rows, valid, 4)
     with pytest.raises(ValueError):
         locate(fm, loc, rows, valid, 0)
+
+
+def test_unpack_cpu_route_and_input_checks():
+    """On the CPU the unpack wrapper runs unpack_plain and counts nothing;
+    bad inputs raise on any device."""
+    from desamba_tpu_torch.ops.unpack import unpack, unpack_plain
+
+    packed, lens = wire_batch(9, 512, seed=2)
+    args = [torch.from_numpy(packed), torch.from_numpy(lens)]
+    before = dict(kernels.launches)
+    for g, r in zip(unpack(*args), unpack_plain(*args), strict=True):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    assert kernels.launches == before
+    bad = [(0, args[0].to(torch.int32)), (1, args[1].long()),
+           (0, args[0][:, :-4]), (0, args[0][:, ::2]), (1, args[1][:-1]),
+           (0, args[0][0])]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            unpack(*a)
+
+
+def test_band_windows_cpu_route_and_input_checks(tables):
+    """On the CPU the band_windows wrapper runs band_windows_plain and
+    counts nothing; bad inputs and tables raise on any device."""
+    import copy
+
+    from desamba_tpu_torch.ops.rescore import band_windows, band_windows_plain
+    from desamba_tpu_torch.ops.unpack import unpack_plain
+
+    ra = tables[3]
+    packed, lens, ref_c, diag_c, _ = stage4_cases(ra, 256, n_random=4)
+    _, _, rw, l2 = unpack_plain(torch.from_numpy(packed),
+                                torch.from_numpy(lens))
+    args = [ra, rw, l2, torch.from_numpy(ref_c), torch.from_numpy(diag_c),
+            80]
+    before = dict(kernels.launches)
+    for g, r in zip(band_windows(*args), band_windows_plain(*args),
+                    strict=True):
+        assert torch.equal(g, r)
+    assert kernels.launches == before
+    bad = [(1, rw.long()), (1, rw[:-2]), (2, l2[:-1]), (2, l2.long()),
+           (3, args[3].long()), (3, args[3][:, :2]), (4, args[4][:-2]),
+           (4, args[4].t()), (5, 72), (5, 0)]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            band_windows(*a)
+    for field, t in (("ref_offset", ra.ref_offset[:-1]),
+                     ("ref_len", ra.ref_len.long()),
+                     ("ref_words_lsb", ra.ref_words_lsb[:0])):
+        ra2 = copy.copy(ra)
+        setattr(ra2, field, t)
+        with pytest.raises(ValueError):
+            band_windows(ra2, *args[1:])
+
+
+def test_combine_cpu_route_and_input_checks():
+    """On the CPU the combine wrapper runs combine_plain and counts
+    nothing; bad inputs raise on any device."""
+    from desamba_tpu_torch.ops.rescore import combine, combine_plain
+
+    args = list(_combine_inputs(50, 3, 4, 7, "cpu"))
+    before = dict(kernels.launches)
+    got = combine(*args)
+    assert got.dtype == torch.int32 and got.shape == (6, 50)
+    assert torch.equal(got, combine_plain(*args))
+    assert kernels.launches == before
+    s, rc = args[1], args[4]
+    bad = [(1, s.long()), (2, s[:-1]), (3, s[::2]), (4, rc[:-1]),
+           (4, rc[:, :2]), (5, args[5].long()), (4, rc[:0, :0])]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            combine(*a)
 
 
 def test_numpy_hashes_equal_the_u64_emulation():
