@@ -21,15 +21,18 @@ Phases (any failure raises, and the script exits nonzero):
   2. the bench data (child process), the port's index loader and
      FastClassifier on "cuda"; the stages run once on the first full
      chunk of the narrowest width bucket, recording each kernel's inputs
-     there, and each kernel is held against its plain version on them:
-     equal exactly, both timed with CUDA events (median of 20, L2
-     flushed before each call, as the path finds the tables cold), beside
-     the least time the card could take for the same work; then one warm
-     classify_batch
+     there (its first call, and its first call through an index list:
+     K1's and K2's resume, compact's second cut), and each kernel is held
+     against its plain version on them: equal exactly, both timed with
+     CUDA events (median of 20, L2 flushed before each call, as the path
+     finds the tables cold), beside the least time the card could take
+     for the same work and, for compact, torch.nonzero on the same mask;
+     then one warm classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
-     kernel must have launched (those of stages 0, 1, 3 and 4 once a
-     chunk); then three pure-device runs (reads/s) and
+     kernel must have launched (those of stages 0, 1, 3 and 4 and
+     row_grid once a chunk, K1 and K2 three times, compact four); then
+     three pure-device runs (reads/s) and
      the device-vs-native agreement through the port's binding of the
      native engine (gated at 0.99, bench.py's gate; truth accuracy)
   4. every read through a classifier running the plain versions
@@ -39,8 +42,9 @@ Phases (any failure raises, and the script exits nonzero):
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
      torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
-     and, for stage 1, the kernel's bound; stages 0, 3 and 4's and the
-     fused chunk's device time, span and launches per chunk; then one
+     and, for stage 1, the kernel's bound; every stage's and the fused
+     chunk's device time, span and launches per chunk (stage 2 at most
+     STAGE2_MAX_LAUNCHES); then one
      pure-device classify_batch unprofiled and one under torch.profiler:
      device busy share = kernel time over the unprofiled wall, and each
      hand kernel's device time per launch as the path runs it
@@ -69,21 +73,30 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
-# the CUDA function each kernel launches (its profiler rows)
+STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
+# the CUDA functions each kernel's wrapper launches (its profiler rows),
+# once each a call
 GLOBAL = {
-    "unpack": "unpack_kernel",
-    "stage1": "stage1_kernel",
-    "interval_search": "interval_search_kernel",
-    "row_walks": "row_walks_kernel",
-    "locate": "locate_kernel",
-    "band_windows": "band_windows_kernel",
-    "band_score_packed": "band_score_kernel",
-    "combine": "combine_kernel",
+    "unpack": ("unpack_kernel",),
+    "stage1": ("stage1_kernel",),
+    "interval_search": ("interval_search_kernel",),
+    "compact": ("compact_scatter_kernel", "compact_count_kernel"),
+    "row_grid": ("row_grid_scatter_kernel", "row_grid_count_kernel"),
+    "row_walks": ("row_walks_kernel",),
+    "locate": ("locate_kernel",),
+    "band_windows": ("band_windows_kernel",),
+    "band_score_packed": ("band_score_kernel",),
+    "combine": ("combine_kernel",),
 }
+# the calls through an index list that stage 2 makes, each held against
+# its plain version besides its kernel's first call
+INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]", "compact[src]")
 REPLACES = {
     "unpack": "desamba_tpu/engine/fast_engine.py:141",
     "stage1": "desamba_tpu/engine/fast_engine.py:203",
     "interval_search": "desamba_tpu/ops/fm.py:165",
+    "compact": "desamba_tpu/engine/fast_engine.py:242",
+    "row_grid": "desamba_tpu/engine/fast_engine.py:288",
     "row_walks": "desamba_tpu/ops/fm.py:261",
     "locate": "desamba_tpu/ops/locate.py:59",
     "band_windows": "desamba_tpu/engine/fast_engine.py:420",
@@ -249,16 +262,19 @@ def stage_calls(cl, packed, lens, ops):
 
 
 def kernel_inputs(cl, packed, lens) -> dict:
-    """{kernel: args of its first call} when the stages run on a chunk."""
+    """{kernel: (args, keyword args) of its first call} when the stages
+    run on a chunk; "kernel[sel]" / "kernel[src]" for the first call
+    through an index list."""
     from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
 
     cap: dict = {}
 
     def recording(name, fn):
-        def call(*args):
-            cap.setdefault(name, args)
-            return fn(*args)
+        def call(*args, **kw):
+            cap.setdefault(f"{name}[{','.join(kw)}]" if kw else name,
+                           (args, kw))
+            return fn(*args, **kw)
         return call
 
     stage_calls(cl, packed, lens,
@@ -266,11 +282,12 @@ def kernel_inputs(cl, packed, lens) -> dict:
     return cap
 
 
-def work(name: str, args, out) -> tuple[int, int]:
+def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
     """(bytes, int32 operations) the kernel's function needs on these
     inputs: each streamed input read once and each output written once,
     plus 32-byte sectors of the tables this run's data reads (counted
-    from the inputs and outputs)."""
+    from the inputs and outputs); sel / src: the index list of a resume /
+    of compact's second cut."""
     import torch
 
     if name == "stage1":
@@ -294,15 +311,40 @@ def work(name: str, args, out) -> tuple[int, int]:
     if name == "interval_search":
         fm, codes, lanes, max_rst, l_min, l_max, state, _ = args
         steps = int((state[5] - out[5]).sum(dtype=torch.int64))
-        # two occ words (one sector each) and a read code a step
-        return (nbytes(lanes, max_rst, l_min, l_max, state, out)
-                + steps * (2 * SECTOR + 4), steps * 40)
+        # two occ words (one sector each) and a read code a step; through
+        # an index list, the listed lanes' parameters (each distinct
+        # sector once) and the carry copied in and out
+        return (per_lane_bytes(sel, lanes, max_rst, l_min, l_max)
+                + nbytes(state, out) + steps * (2 * SECTOR + 4), steps * 40)
     if name == "row_walks":
         fm, codes, lanes, max_lens, state, _ = args
         reads = int((out[2] - state[2]).sum(dtype=torch.int64)
                     + (out[3] & ~state[3]).sum(dtype=torch.int64))
-        return (nbytes(lanes, max_lens, state, out) + reads * (SECTOR + 4),
-                reads * 20)
+        return (per_lane_bytes(sel, lanes, max_lens) + nbytes(state, out)
+                + reads * (SECTOR + 4), reads * 20)
+    if name == "compact":
+        done, cap = args
+        # the done row (or the list and each distinct done sector it
+        # names) in, the slots out; ~10 operations an entry (compare,
+        # ballot, popc, the prefix, the cap test, the store)
+        if src is None:
+            return nbytes(done, out), 10 * done.numel()
+        ok = (src >= 0) & (src < done.numel())
+        return (nbytes(src, out) + SECTOR * distinct_sectors(src[ok]),
+                10 * src.numel())
+    if name == "row_grid":
+        from desamba_tpu_torch.constants import ROWS_PER_SEARCH as R
+
+        state, seed_ok, lane, s_idx, cap = args
+        # nsp, nep and seed_ok of every lane in; match_len, ptr, lane and
+        # s_idx of the lanes that fill a slot (each distinct sector once);
+        # the three outputs out; ~10 operations an entry of the S x R
+        # grid and ~20 a slot
+        S = state.shape[1]
+        lanes = out[0].clamp(max=S * R - 1) // R
+        return (nbytes(state[2], state[3], seed_ok, *out)
+                + 4 * SECTOR * distinct_sectors(lanes),
+                10 * S * R + 20 * cap)
     if name == "locate":
         return locate_work(*args, out)
     if name == "unpack":
@@ -327,6 +369,16 @@ def work(name: str, args, out) -> tuple[int, int]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def per_lane_bytes(sel, *per_lane) -> int:
+    """Bytes of a loop's per-lane parameters: whole, or through sel each
+    distinct sector of the listed lanes once."""
+    if sel is None:
+        return nbytes(*per_lane)
+    n = per_lane[0].numel()
+    return nbytes(sel) + len(per_lane) * SECTOR * distinct_sectors(
+        sel[(sel >= 0) & (sel < n)])
 
 
 def distinct_sectors(*idx) -> int:
@@ -442,29 +494,6 @@ def vote_work(cl, stage2_out, B2: int, nwR: int,
             + 3 * 4 * B2 * A + 3 * 4 * B2 * 3, 6 * pairs)
 
 
-def compaction_work(S: int) -> tuple[int, int]:
-    """(bytes, int32 operations) of K3, stage 2's capped compactions
-    around K1 and K2 (fast_engine.build_stages' stage2), from the number
-    of seed lanes S and the caps fast_engine.compaction_caps derives: each compaction reads its
-    live mask (1 byte a lane), writes its index list and gathers the
-    carry columns it keeps (read and written once, 4 bytes a value); each
-    scatter moves the kept columns back; the walks' row grid and stage 2's
-    five outputs are written once. ~10 int32 operations a lane of each
-    compaction (the prefix sum, the cap test, the scatter)."""
-    from desamba_tpu_torch.constants import ROWS_PER_SEARCH
-    from desamba_tpu_torch.engine.fast_engine import compaction_caps
-
-    NC2, NC3, NC, NCW, NCW2 = compaction_caps(S)
-    SR = S * ROWS_PER_SEARCH
-    # (lanes in, slots kept, int32 values a kept column: carry + params)
-    cuts = [(S, NC2, 8 + 4), (NC2, NC3, 8 + 4), (SR, NC, 4),
-            (NC, NCW, 5 + 2), (NCW, NCW2, 5 + 2)]
-    b = sum(n + 4 * k + 2 * 4 * k * v for n, k, v in cuts)
-    b += 2 * 4 * (5 * (NC3 + NC2) + 3 * (NCW2 + NCW))  # scatters back
-    b += SR * (4 * 4 + 1) + NC * (4 * 4 + 1)  # row grid, outputs
-    return b, 10 * sum(n for n, _, _ in cuts)
-
-
 def bound_of(b: int, ops: int) -> tuple[float, str]:
     """(ms, "bytes" or "operations"): the least time the card could take
     for b bytes and ops int32 operations, the larger of the two."""
@@ -472,13 +501,14 @@ def bound_of(b: int, ops: int) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def bound(name: str, args, out) -> tuple[float, str]:
+def bound(name: str, args, out, **kw) -> tuple[float, str]:
     """bound_of the kernel's work on these inputs."""
-    return bound_of(*work(name, args, out))
+    return bound_of(*work(name, args, out, **kw))
 
 
 def check_kernels(cap: dict) -> dict:
-    """Each kernel against its plain version on its captured inputs."""
+    """Each kernel against its plain version on each of its captured
+    calls, keyed as kernel_inputs keys them."""
     import torch
 
     from desamba_tpu_torch import kernels
@@ -489,6 +519,8 @@ def check_kernels(cap: dict) -> dict:
                              f"lek={a[3]} mask_bits={a[5]}"),
         "interval_search": lambda a: (f"n={a[6].shape[1]} "
                                       f"W={a[1].shape[1]} steps={a[7]}"),
+        "compact": lambda a: f"n={a[0].shape[0]} cap={a[1]}",
+        "row_grid": lambda a: f"S={a[0].shape[1]} cap={a[4]}",
         "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
         "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
         "unpack": lambda a: f"Bp={a[0].shape[0]} W={2 * a[0].shape[1]}",
@@ -499,25 +531,39 @@ def check_kernels(cap: dict) -> dict:
         "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
                                         f"W={16 * a[0].shape[1]} K={a[5]}"),
     }
+    missing = [k for k in (*kernels.KERNELS, *INDEX_LIST_CALLS)
+               if k not in cap]
+    if missing:
+        raise AssertionError(f"no call of {missing} was captured")
     out = {}
-    for name in kernels.KERNELS:
+    for key, (args, kw) in cap.items():
+        name = key.split("[")[0]
         kern, plain = KERNEL_OPS[name], PLAIN_OPS[name]
-        args = cap[name]
-        shape = shapes[name](args)
-        got = kern(*args)
-        ref = plain(*args)
+        shape = shapes[name](args) + "".join(
+            f" {k}={v.numel()}" for k, v in kw.items())
+        got = kern(*args, **kw)
+        ref = plain(*args, **kw)
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain "
+            raise AssertionError(f"{key}: kernel differs from its plain "
                                  f"version (max abs err {err}) at {shape}")
-        ms = cuda_ms(lambda: kern(*args), 20, cold=True)
-        plain_ms = cuda_ms(lambda: plain(*args), 20, cold=True)
-        bound_ms, bound_by = bound(name, args, ref)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, shape=shape)
-        log(f"smoke: {name} [{shape}] equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        ms = cuda_ms(lambda: kern(*args, **kw), 20, cold=True)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 20, cold=True)
+        bound_ms, bound_by = bound(name, args, ref, **kw)
+        library_ms = None
+        if name == "compact" and not kw:
+            # torch.nonzero: the live lanes' indices, without the cap and
+            # the fill; it syncs with the host to size its output
+            live = args[0] == 0
+            library_ms = cuda_ms(lambda: torch.nonzero(live), 20, cold=True)
+        out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=library_ms, shape=shape)
+        log(f"smoke: {key} [{shape}] equal; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", torch.nonzero {library_ms:.4f} ms"
+               if library_ms is not None else ""))
     return out
 
 
@@ -539,15 +585,13 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
         row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
-        # the programs that are still plain torch (K3, K7) have no kernel
-        # to time, only their bounds: (ms, "bytes" or "operations")
+        # K7, still plain torch, has no kernel to time, only its bound:
+        # (ms, "bytes" or "operations")
         B2 = 2 * packed.shape[0]
         row["3 locate+vote"].update(
             vote_bound=bound_of(*vote_work(cl, o2, B2, nwR)),
             vote_bound_all_pairs=bound_of(*vote_work(cl, o2, B2, nwR,
                                                      all_pairs=True)))
-        row["2 FM search+walks"]["compaction_bound"] = bound_of(
-            *compaction_work(s1_io[1][1].numel()))
         stages[f"W={W} ({n_chunk} reads)"] = row
     cl.exact_fallback = False
     torch.cuda.synchronize()
@@ -571,9 +615,9 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]]
     on_path = {}
     for name in kernels.KERNELS:
-        rows = [e for e in ev if GLOBAL[name] in e.key]
+        rows = [e for e in ev if any(g in e.key for g in GLOBAL[name])]
         ms = sum(e.self_device_time_total for e in rows) / 1e3
-        count = sum(e.count for e in rows)
+        count = sum(e.count for e in rows if GLOBAL[name][0] in e.key)
         on_path[name] = dict(ms=ms, launches=count,
                              ms_per_launch=ms / max(1, count))
     return dict(card=card, stages=stages, batch=dict(
@@ -699,11 +743,16 @@ def main() -> int:
     launches = dict(kernels.launches)
     if not all(launches[k] > 0 for k in kernels.KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
-    # stages 0, 1, 3 and 4 launch each of their kernels once a chunk
-    once = ("unpack", "locate", "band_windows", "band_score_packed",
-            "combine")
-    if any(launches[k] != launches["stage1"] for k in once):
-        raise AssertionError(f"{once} were not each launched once a chunk: "
+    # launches a chunk (stage 1 launches once a chunk): stages 0, 3 and 4
+    # and stage 2's row grid once; the two loops three times, the
+    # compactions four
+    per_chunk = dict(unpack=1, interval_search=3, compact=4, row_grid=1,
+                     row_walks=3, locate=1, band_windows=1,
+                     band_score_packed=1, combine=1)
+    off = {k: v for k, v in per_chunk.items()
+           if launches[k] != v * launches["stage1"]}
+    if off:
+        raise AssertionError(f"launches a chunk other than {per_chunk}: "
                              f"{launches}")
     print("launches per batch " + json.dumps(  # of the three runs
         {k: v / 3 for k, v in launches.items()}), flush=True)
@@ -766,26 +815,29 @@ def main() -> int:
     tg = where_time_goes(cl, chunks, reads, card)
     print("time " + json.dumps(tg), flush=True)
     for key, row in tg["stages"].items():
-        for st in ("0 unpack", "3 locate+vote", "4 band rescore", "fused"):
+        for st in ("0 unpack", "2 FM search+walks", "3 locate+vote",
+                   "4 band rescore", "fused"):
             r = row[st]
             log(f"smoke: stage {st} at {key}: device {r['device_ms']:.3f} "
                 f"ms, span {r['span_ms']:.3f} ms, "
                 f"{r['kernels_per_call']:.0f} launches a call")
         log(f"smoke: plain K7 (vote) at {key}: bound "
             f"{row['3 locate+vote']['vote_bound']}, all pairs "
-            f"{row['3 locate+vote']['vote_bound_all_pairs']}; plain K3 "
-            f"(compactions): bound "
-            f"{row['2 FM search+walks']['compaction_bound']}")
+            f"{row['3 locate+vote']['vote_bound_all_pairs']}")
+        n2 = row["2 FM search+walks"]["kernels_per_call"]
+        if n2 > STAGE2_MAX_LAUNCHES:
+            raise AssertionError(f"stage 2 launched {n2} kernels a chunk "
+                                 f"at {key} (at most {STAGE2_MAX_LAUNCHES})")
     on_path = tg["batch"]["hand_kernels"]
 
     rows = [dict(name=k, route="cuda", source=kernels.source_path(k),
                  replaces=REPLACES[k], launches=launches[k],
-                 max_abs_err=checks[k]["max_abs_err"], ms=checks[k]["ms"],
-                 plain_ms=checks[k]["plain_ms"],
-                 bound_ms=checks[k]["bound_ms"],
-                 bound_by=checks[k]["bound_by"], library_ms=None,
+                 **{f: checks[k][f] for f in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "shape")},
                  path_ms=on_path[k]["ms_per_launch"],
-                 shape=checks[k]["shape"])
+                 index_list={key: checks[key] for key in checks
+                             if key.startswith(k + "[")})
             for k in kernels.KERNELS]
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "desamba_tpu",

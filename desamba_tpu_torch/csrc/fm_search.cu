@@ -17,6 +17,12 @@
 //
 // Carry layout: int32 [8, n] rows sp, ep, nsp, nep, match_len, ptr, done,
 // status (the JAX carry's fields in order; done as 0/1).
+//
+// Resume through an index list: with sel (int32[m], distinct lane indices;
+// entries outside [0, n) are skipped) thread j runs lane sel[j] of the
+// full carry, and st_out, a copy of st_in that the caller made, keeps
+// every other lane. This is JAX's gather of the compacted carry, resume
+// and scatter back (fast_engine.py:245-275) without moving the carry.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -45,10 +51,12 @@ __global__ void interval_search_kernel(
     const int* __restrict__ lanes, const int* __restrict__ max_rst,
     const int* __restrict__ l_min, const int* __restrict__ l_max,
     const int* __restrict__ st_in, int* __restrict__ st_out, long long n,
-    int max_steps) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+    const int* __restrict__ sel, long long m, int max_steps) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
-  if (i >= n) return;
+  if (t >= m) return;
+  const long long i = sel == nullptr ? t : sel[t];
+  if (i < 0 || i >= n) return;
   int sp = st_in[i], ep = st_in[n + i];
   int nsp = st_in[2 * n + i], nep = st_in[3 * n + i];
   int ml = st_in[4 * n + i], ptr = st_in[5 * n + i];
@@ -97,10 +105,11 @@ extern "C" int dsb_interval_search(
     const void* occ32, long long n_blk, const void* rank, const void* codes,
     int W, const void* lanes, const void* max_rst, const void* l_min,
     const void* l_max, const void* st_in, void* st_out, long long n,
-    int max_steps, void* stream) {
-  if (n > 0) {
+    const void* sel, long long m, int max_steps, void* stream) {
+  // m: threads, n without a list
+  if (m > 0) {
     const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
+    const long long blocks = (m + threads - 1) / threads;
     interval_search_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint2*>(occ32), n_blk,
@@ -108,7 +117,7 @@ extern "C" int dsb_interval_search(
         static_cast<const int*>(lanes), static_cast<const int*>(max_rst),
         static_cast<const int*>(l_min), static_cast<const int*>(l_max),
         static_cast<const int*>(st_in), static_cast<int*>(st_out), n,
-        max_steps);
+        static_cast<const int*>(sel), m, max_steps);
   }
   return static_cast<int>(cudaGetLastError());
 }

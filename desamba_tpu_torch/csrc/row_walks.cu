@@ -15,6 +15,12 @@
 // the few long walks do not hold the short ones.
 //
 // Carry layout: int32 [5, n] rows sp, ptr, n, done, bad (done/bad as 0/1).
+//
+// Resume through an index list: with sel (int32[m], distinct slot indices;
+// entries outside [0, n) are skipped) thread j runs slot sel[j] of the
+// full carry, and st_out, a copy of st_in that the caller made, keeps
+// every other slot: JAX's gather, resume and scatter back of the walks'
+// two cuts (fast_engine.py:314-347) without moving the carry.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,10 +39,13 @@ __global__ void row_walks_kernel(
     const unsigned* __restrict__ lfc, long long n_rows,
     const int* __restrict__ codes, int W, const int* __restrict__ lanes,
     const int* __restrict__ max_lens, const int* __restrict__ st_in,
-    int* __restrict__ st_out, long long n, int trace_cap) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+    int* __restrict__ st_out, long long n, const int* __restrict__ sel,
+    long long m, int trace_cap) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
-  if (i >= n) return;
+  if (t >= m) return;
+  const long long i = sel == nullptr ? t : sel[t];
+  if (i < 0 || i >= n) return;
   int sp = st_in[i], ptr = st_in[n + i], cnt = st_in[2 * n + i];
   int done = st_in[3 * n + i], bad = st_in[4 * n + i];
   if (!done && trace_cap > 0) {
@@ -71,17 +80,19 @@ __global__ void row_walks_kernel(
 extern "C" int dsb_row_walks(const void* lfc, long long n_rows,
                              const void* codes, int W, const void* lanes,
                              const void* max_lens, const void* st_in,
-                             void* st_out, long long n, int trace_cap,
-                             void* stream) {
-  if (n > 0) {
+                             void* st_out, long long n, const void* sel,
+                             long long m, int trace_cap, void* stream) {
+  // m: threads, n without a list
+  if (m > 0) {
     const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
+    const long long blocks = (m + threads - 1) / threads;
     row_walks_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned*>(lfc), n_rows,
         static_cast<const int*>(codes), W, static_cast<const int*>(lanes),
         static_cast<const int*>(max_lens), static_cast<const int*>(st_in),
-        static_cast<int*>(st_out), n, trace_cap);
+        static_cast<int*>(st_out), n, static_cast<const int*>(sel), m,
+        trace_cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

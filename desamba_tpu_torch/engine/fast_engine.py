@@ -8,8 +8,9 @@ package's, step for step, with the same static schedule and caps:
   stage1  exist-filter probe + per-window top seed (ops/seeds.stage1, a
           hand CUDA kernel)
   stage2  FM backward interval search from the hash13 head start and the
-          per-row LF walks, each as burst / compact / resume (ops/fm; the
-          two loops are hand CUDA kernels)
+          per-row LF walks, each as burst / compact / resume (ops/fm's
+          two loops resume through ops/compact's index lists; all four
+          are hand CUDA kernels)
   stage3  SA-sample resolution and reference positions (ops/locate.locate,
           a hand CUDA kernel) and the windowed diagonal vote
   stage4  candidate windows (ops/rescore.band_windows), SWAR banded
@@ -43,8 +44,9 @@ from ..constants import (AMB_LARGE_L, AMB_MARGIN, AMB_MARGIN_LARGE,
                          REFPOS_PER_ANCHOR, ROWS_PER_SEARCH, SHORT_3G_READ_L,
                          STEP_EK, VOTE_TILE, WALK_BURST, WALK_MID, WALK_TAIL,
                          _band, _bucket, _pow2)
+from ..ops.compact import compact, compact_plain, row_grid, row_grid_plain
 from ..ops.fm import (interval_search_plain, interval_search_state, iv_init,
-                      row_walks_plain, row_walks_state, rw_init)
+                      row_walks_plain, row_walks_state)
 from ..ops.locate import locate as locate_op
 from ..ops.locate import locate_plain
 from ..ops.matchblock import band_score_packed, band_score_packed_plain
@@ -61,38 +63,18 @@ I32 = torch.int32
 # wrappers, which launch the hand kernels on CUDA tensors, or their plain
 # torch versions on any device (to check the kernel path)
 KERNEL_OPS = dict(unpack=unpack, stage1=stage1_op,
-                  interval_search=interval_search_state,
-                  row_walks=row_walks_state, locate=locate_op,
+                  interval_search=interval_search_state, compact=compact,
+                  row_grid=row_grid, row_walks=row_walks_state,
+                  locate=locate_op,
                   band_windows=band_windows,
                   band_score_packed=band_score_packed, combine=combine)
 PLAIN_OPS = dict(unpack=unpack_plain, stage1=stage1_plain,
                  interval_search=interval_search_plain,
+                 compact=compact_plain, row_grid=row_grid_plain,
                  row_walks=row_walks_plain, locate=locate_plain,
                  band_windows=band_windows_plain,
                  band_score_packed=band_score_packed_plain,
                  combine=combine_plain)
-
-
-def _compact(live: torch.Tensor, cap: int) -> torch.Tensor:
-    """Stable prefix-position compaction: int32[cap] holding the indices of
-    the first `cap` live lanes in order, then n (= len(live)) in the
-    unused slots. Live lanes past the cap are dropped."""
-    n = live.shape[0]
-    pos = torch.cumsum(live.to(I32), 0, dtype=I32) - 1
-    tgt = torch.where(live & (pos < cap), pos, cap)
-    sel = torch.full((cap + 1,), n, dtype=I32, device=live.device)
-    sel.scatter_(0, tgt.long(), torch.arange(n, dtype=I32,
-                                             device=live.device))
-    return sel[:cap]
-
-
-def _scatter_rows(dst: torch.Tensor, idx: torch.Tensor,
-                  src: torch.Tensor) -> torch.Tensor:
-    """dst[:, idx] = src, dropping idx == dst.shape[1] (JAX mode='drop')."""
-    n = dst.shape[1]
-    out = torch.cat([dst, dst[:, :1]], 1)
-    out[:, idx.long()] = src
-    return out[:, :n]
 
 
 def compaction_caps(S: int) -> tuple[int, int, int, int, int]:
@@ -109,9 +91,9 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                  nw0: int = 0, ops=KERNEL_OPS):
     """Returns (stage1, stage2, stage3, stage4) closed over the static
     exist-filter parameters; `ops` is KERNEL_OPS or PLAIN_OPS."""
-    s1, iv, rw, lc, bw, bsp, cmb = (ops[k] for k in (
-        "stage1", "interval_search", "row_walks", "locate", "band_windows",
-        "band_score_packed", "combine"))
+    s1, iv, cp, rg, rw, lc, bw, bsp, cmb = (ops[k] for k in (
+        "stage1", "interval_search", "compact", "row_grid", "row_walks",
+        "locate", "band_windows", "band_score_packed", "combine"))
 
     def stage1(w01, codes2, lengths2):
         """(lo26, kidx, runlen, n_exist) of the STEP_EK probe grid."""
@@ -122,79 +104,45 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
         dev = codes_i.device
         n_win = kidx.shape[1]
         S = B2 * n_win
-        lane = torch.arange(B2, dtype=I32, device=dev).repeat_interleave(
-            n_win)
+        lane = torch.arange(S, dtype=I32, device=dev) // n_win
+        lane_l = lane.long()
         sk = kidx.reshape(S)
         rl = runlen.reshape(S)
-        s_idx = (STEP_EK - 1) + STEP_EK * sk + (lek - 1)
-        seed_ok = (rl > 0) & (s_idx < lengths2[lane.long()])
-        pre = lo26[lane.long(), sk.long()].long()
+        s_idx = STEP_EK * sk + (STEP_EK - 1 + lek - 1)
+        seed_ok = (rl > 0) & (s_idx < lengths2[lane_l])
+        pre = lo26[lane_l, sk.long()].long()
         sp0 = torch.where(seed_ok, fm.hash13[pre], 0)
         ep0 = torch.where(seed_ok, fm.hash13[pre + 1], 0)
         max_rst_a = torch.full((S,), ROWS_PER_SEARCH, dtype=I32, device=dev)
         l_min_a = torch.full((S,), min_match, dtype=I32, device=dev)
         l_max_a = torch.clamp(s_idx, max=13 + FM_EXT_CAP).to(I32)
         NC2, NC3, NC, NCW, NCW2 = compaction_caps(S)
-        # burst on all S lanes, compact the stragglers to S/8, resume,
-        # compact to S/32, finish; lanes past a cap keep their carry
-        st = iv(fm, codes_i, lane, max_rst_a, l_min_a, l_max_a,
-                iv_init(sp0, ep0, s_idx), IV_BURST)
-        sel2 = _compact(st[6] == 0, NC2)
-        s2i = sel2.clamp(max=S - 1).long()
-        st_c = st[:, s2i]
-        st_c[6] |= (sel2 >= S).to(I32)
-        mid_c = iv(fm, codes_i, lane[s2i], max_rst_a[s2i], l_min_a[s2i],
-                   l_max_a[s2i], st_c, IV_MID)
-        sel3 = _compact(mid_c[6] == 0, NC3)
-        s3i = sel3.clamp(max=NC2 - 1).long()
-        st_c3 = mid_c[:, s3i]
-        st_c3[6] |= (sel3 >= NC2).to(I32)
-        s2i3 = s2i[s3i]
-        fin_c = iv(fm, codes_i, lane[s2i3], max_rst_a[s2i3], l_min_a[s2i3],
-                   l_max_a[s2i3], st_c3, 4096)
-        keep = [2, 3, 4, 5, 7]  # nsp, nep, match_len, ptr, status
-        mid_f = _scatter_rows(mid_c[keep], sel3, fin_c[keep])
-        res_sp, res_ep, ml0, res_ptr, _ = _scatter_rows(
-            st[keep], sel2, mid_f).unbind(0)
-        # status 1 (depth cap / read start reached) is a hit here too
-        srch_ok = seed_ok & (res_sp < res_ep)
-        # per-row single-interval extension (bwt_single_search analog)
-        # on the compacted live rows, in three burst/compact phases
-        R = ROWS_PER_SEARCH
-        rowk = torch.arange(R, dtype=I32, device=dev)
-        rows = (res_sp[:, None] + rowk[None, :]).reshape(-1)
-        rvalid = (srch_ok[:, None] & (
-            res_sp[:, None] + rowk[None, :] < res_ep[:, None])).reshape(-1)
-        lane_r = lane.repeat_interleave(R)
-        ptr_r = res_ptr.repeat_interleave(R)
-        rem_r = torch.clamp(s_idx - ml0, min=0).repeat_interleave(R)
-        SR = S * R
-        sel = _compact(rvalid, NC)
-        sval = sel < SR
-        seli = sel.clamp(max=SR - 1).long()
-        wlens = torch.where(sval, rem_r[seli], 0).to(I32)
-        wlanes = lane_r[seli]
-        stw = rw(fm, codes_i, wlanes, wlens, rw_init(rows[seli], ptr_r[seli]),
-                 WALK_BURST)
-        selw = _compact(stw[3] == 0, NCW)
-        swi = selw.clamp(max=NC - 1).long()
-        stw_c = stw[:, swi]
-        stw_c[3] |= (selw >= NC).to(I32)
-        wlanes2, wlens2 = wlanes[swi], wlens[swi]
-        st2 = rw(fm, codes_i, wlanes2, wlens2, stw_c, WALK_MID)
-        selw2 = _compact(st2[3] == 0, NCW2)
-        swi2 = selw2.clamp(max=NCW - 1).long()
-        st2_c = st2[:, swi2]
-        st2_c[3] |= (selw2 >= NCW).to(I32)
-        wrc = rw(fm, codes_i, wlanes2[swi2], wlens2[swi2], st2_c, WALK_TAIL)
-        keep = [0, 2, 4]  # sp, n, bad
-        mid = _scatter_rows(st2[keep], selw2, wrc[keep])
-        final_sp, steps, badw = _scatter_rows(stw[keep], selw, mid).unbind(0)
-        total_c = ml0.repeat_interleave(R)[seli] + 1 + steps
-        hit_c = sval & (total_c >= min_match) & (badw == 0)
-        qleft_c = s_idx.repeat_interleave(R)[seli] - total_c + 1
+        # burst on all S lanes, then resume the first NC2 still live, then
+        # the first NC3 of those, in place in the full carry: a live lane
+        # past a cap keeps its carry (JAX's truncation at the cut)
+        args = (fm, codes_i, lane, max_rst_a, l_min_a, l_max_a)
+        st = iv(*args, iv_init(sp0, ep0, s_idx), IV_BURST)
+        sel2 = cp(st[6], NC2)
+        st = iv(*args, st, IV_MID, sel=sel2)
+        st = iv(*args, st, 4096, sel=cp(st[6], NC3, src=sel2))
+        # the first NC valid rows of the final intervals (status 1, depth
+        # cap or read start, is a hit too) and the per-row single-interval
+        # extension (bwt_single_search analog) on them, in the same three
+        # burst / cut phases over the [5, NC] walk carry
+        sel, stw, (wlanes, wlens, ml_c, s_c) = rg(st, seed_ok, lane, s_idx,
+                                                  NC)
+        stw = rw(fm, codes_i, wlanes, wlens, stw, WALK_BURST)
+        selw = cp(stw[3], NCW)
+        stw = rw(fm, codes_i, wlanes, wlens, stw, WALK_MID, sel=selw)
+        stw = rw(fm, codes_i, wlanes, wlens, stw, WALK_TAIL,
+                 sel=cp(stw[3], NCW2, src=selw))
+        final_sp, steps, badw = stw[0], stw[2], stw[4]
+        total_c = ml_c + 1 + steps
+        hit_c = ((sel < S * ROWS_PER_SEARCH) & (total_c >= min_match)
+                 & (badw == 0))
+        qleft_c = s_c - total_c + 1
         # all [NC]-compacted; sel maps back to the (seed-window, row) grid
-        return final_sp, hit_c, total_c, qleft_c.to(I32), sel
+        return final_sp, hit_c, total_c, qleft_c, sel
 
     def stage3(fm, loc, lengths2, fsp_c, hit_c, total_c, qleft_c, sel,
                B2: int, nwR: int):

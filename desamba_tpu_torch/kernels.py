@@ -38,10 +38,15 @@ KERNELS = {
         [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "interval_search": (
         "fm_search.cu", "dsb_interval_search",
-        [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P]),
+        [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _I, _P]),
+    "compact": (
+        "compact.cu", "dsb_compact", [_P, _LL, _P, _LL, _I, _P, _LL, _P, _P]),
+    "row_grid": (
+        "compact.cu", "dsb_row_grid",
+        [_P, _P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P]),
     "row_walks": (
         "row_walks.cu", "dsb_row_walks",
-        [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _I, _P]),
+        [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _P, _LL, _I, _P]),
     "locate": (
         "locate.cu", "dsb_locate",
         [_P, _LL, _LL, _P, _P, _LL, _P, _LL, _LL, _P, _LL, _P, _P, _LL, _P,
@@ -150,7 +155,8 @@ def call(name: str, *args) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's data pointer; NULL for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device) -> ctypes.c_void_p:

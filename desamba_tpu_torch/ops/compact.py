@@ -1,0 +1,133 @@
+"""Stage 2's capped, stable prefix compactions.
+
+Counterpart of the cumsum / scatter-with-drop compactions inside
+desamba_tpu/engine/fast_engine.py's stage 2 (:237-264, :287-341).
+`compact` keeps the first `cap` live lanes of a carry, in lane order;
+`row_grid` keeps the first `cap` valid rows of the seed lanes' final
+intervals and writes the row walks' start carry. Each has a hand-written
+CUDA kernel (csrc/compact.cu) and a plain torch version; the wrapper runs
+the plain version for tensors on the CPU, and for CUDA tensors it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..constants import ROWS_PER_SEARCH as R
+from .fm import rw_init
+
+I32 = torch.int32
+# entries a block of the kernels' scan; it sizes their scratch of one
+# int32 a block, which compact.cu checks against its own block size
+SCAN_BLOCK = 1024
+
+
+def _first(live: torch.Tensor, vals: torch.Tensor, cap: int,
+           fill: int) -> torch.Tensor:
+    """int32[cap]: vals of the first cap live entries in order, then fill
+    (JAX's cumsum positions and .at[tgt].set(mode="drop"))."""
+    pos = torch.cumsum(live.to(I32), 0, dtype=I32) - 1
+    tgt = torch.where(live & (pos < cap), pos, cap)
+    out = torch.full((cap + 1,), fill, dtype=I32, device=live.device)
+    out.scatter_(0, tgt.long(), vals.to(I32))
+    return out[:cap]
+
+
+def compact_plain(done: torch.Tensor, cap: int,
+                  src: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of the compact kernel. done: int32[n], a carry's
+    done row. Without src, the lanes j with done[j] == 0; with src
+    (int32[m], an earlier compaction), its entries j with
+    0 <= src[j] < n and done[src[j]] == 0, as src[j]. Returns int32[cap]:
+    the first cap of them in order, then n."""
+    n = done.shape[0]
+    if src is None:
+        return _first(done == 0, torch.arange(n, dtype=I32,
+                                              device=done.device), cap, n)
+    ok = (src >= 0) & (src < n)
+    live = ok & (done[src.clamp(0, max(n - 1, 0)).long()] == 0) if n else ok
+    return _first(live, src, cap, n)
+
+
+def compact(done: torch.Tensor, cap: int,
+            src: torch.Tensor | None = None) -> torch.Tensor:
+    """compact_plain's function: int32[cap] of the first cap live lanes of
+    done (int32[n]) or of the source list src (int32[m]), fill n."""
+    n = done.shape[0]
+    dev = done.device
+    kernels.check("done", done, I32, (n,), dev)
+    if src is not None:
+        kernels.check("src", src, I32, (src.numel(),), dev)
+    if cap < 1:
+        raise ValueError(f"cap={cap}")
+    if not kernels.launch_device(done):
+        return compact_plain(done, cap, src)
+    m = n if src is None else src.numel()
+    out = torch.empty(cap, dtype=I32, device=dev)
+    counts = torch.empty(max(1, -(-m // SCAN_BLOCK)), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.call("compact", kernels.ptr(done), n, kernels.ptr(src), m,
+                     int(cap), kernels.ptr(counts), counts.numel(),
+                     kernels.ptr(out), kernels.stream(dev))
+    kernels.launches["compact"] += 1
+    return out
+
+
+def row_grid_plain(state: torch.Tensor, seed_ok: torch.Tensor,
+                   lane: torch.Tensor, s_idx: torch.Tensor, cap: int):
+    """Plain torch version of the row_grid kernel (JAX's lines :287-313
+    and the epilogue's gathers). state: the [8, S] interval-search carry
+    (nsp, nep, match_len, ptr in rows 2-5); seed_ok bool[S]; lane, s_idx
+    int32[S]. With R = ROWS_PER_SEARCH, the grid entry s * R + k is the
+    row nsp + k, valid where seed_ok & (nsp < nep) & (nsp + k < nep), in
+    int32 arithmetic that wraps. Returns (sel int32[cap], the
+    first cap valid entries then S * R; the walks' [5, cap] start carry;
+    int32[4, cap] lane, walk length (max(s_idx - match_len, 0), 0 in
+    unused slots), match_len, s_idx), gathered through
+    seli = min(sel, S * R - 1)."""
+    S = state.shape[1]
+    sp, ep, ml, ptr = state[2], state[3], state[4], state[5]
+    rowk = torch.arange(R, dtype=I32, device=state.device)
+    rows = (sp[:, None] + rowk[None, :]).reshape(-1)
+    srch_ok = seed_ok & (sp < ep)
+    valid = (srch_ok[:, None] & (rows.reshape(S, R) < ep[:, None])).reshape(
+        -1)
+    SR = S * R
+    sel = _first(valid, torch.arange(SR, dtype=I32, device=state.device),
+                 cap, SR)
+    seli = sel.clamp(max=SR - 1).long()
+    si = seli // R
+    rem = torch.clamp(s_idx - ml, min=0)
+    wl = torch.stack([lane[si], torch.where(sel < SR, rem[si], 0), ml[si],
+                      s_idx[si]]).to(I32)
+    return sel, rw_init(rows[seli], ptr[si]), wl
+
+
+def row_grid(state: torch.Tensor, seed_ok: torch.Tensor, lane: torch.Tensor,
+             s_idx: torch.Tensor, cap: int):
+    """row_grid_plain's function on S >= 1 seed lanes: (sel int32[cap],
+    walk start carry int32[5, cap], int32[4, cap] lane / walk length /
+    match_len / s_idx of each slot)."""
+    S = state.shape[1]
+    dev = state.device
+    kernels.check("state", state, I32, (8, S), dev)
+    kernels.check("seed_ok", seed_ok, torch.bool, (S,), dev)
+    kernels.check("lane", lane, I32, (S,), dev)
+    kernels.check("s_idx", s_idx, I32, (S,), dev)
+    if S < 1 or cap < 1 or S * R >= 2**31:
+        raise ValueError(f"S={S}, cap={cap}")
+    if not kernels.launch_device(state):
+        return row_grid_plain(state, seed_ok, lane, s_idx, cap)
+    sel = torch.empty(cap, dtype=I32, device=dev)
+    walk = torch.empty((5, cap), dtype=I32, device=dev)
+    wl = torch.empty((4, cap), dtype=I32, device=dev)
+    counts = torch.empty(-(-S * R // SCAN_BLOCK), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        kernels.call("row_grid", kernels.ptr(state), kernels.ptr(seed_ok),
+                     kernels.ptr(lane), kernels.ptr(s_idx), S, int(R),
+                     int(cap), kernels.ptr(counts), counts.numel(),
+                     kernels.ptr(sel), kernels.ptr(walk), kernels.ptr(wl),
+                     kernels.stream(dev))
+    kernels.launches["row_grid"] += 1
+    return sel, walk, wl

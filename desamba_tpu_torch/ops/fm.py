@@ -7,9 +7,12 @@ on the CPU; for CUDA tensors it launches the kernel or raises.
 
 The carries are packed int32 tensors: [8, n] for the interval search
 (sp, ep, nsp, nep, match_len, ptr, done, status) and [5, n] for the row
-walks (sp, ptr, n, done, bad), so stage 2 compacts a carry with one
-gather. Tables holding uint32 words (occ32, lfc) are stored as int32 with
-the same bits; plain versions widen them to int64 and mask to 32 bits.
+walks (sp, ptr, n, done, bad). Both loops resume through an index list
+`sel` (ops/compact.compact's output): only the listed lanes step, and the
+returned carry keeps every other lane as it was, which is JAX's gather of
+the compacted carry, resume and scatter back. Tables holding uint32
+words (occ32, lfc) are stored as int32 with the same bits; plain
+versions widen them to int64 and mask to 32 bits.
 """
 from __future__ import annotations
 
@@ -152,9 +155,26 @@ def iv_init(sp0, ep0, s_idx) -> torch.Tensor:
         torch.full_like(z, L_PRE), s_idx.to(torch.int32) - L_PRE, z, z])
 
 
+def _resume(loop, state, sel, lanes, *per_lane):
+    """loop(lanes, *per_lane, carry) on the carry's columns listed in sel
+    (entries outside [0, n) skipped), scattered into a copy of state."""
+    n = state.shape[1]
+    idx = sel[(sel >= 0) & (sel < n)].long()
+    out = state.clone()
+    out[:, idx] = loop(lanes[idx], *(t[idx] for t in per_lane),
+                       state[:, idx])
+    return out
+
+
 def interval_search_plain(fm: FmArrays, codes, lanes, max_rst, l_min,
-                          l_max, state, max_steps: int) -> torch.Tensor:
-    """Plain torch version of the K1 kernel: the JAX lockstep loop."""
+                          l_max, state, max_steps: int,
+                          sel=None) -> torch.Tensor:
+    """Plain torch version of the K1 kernel: the JAX lockstep loop; with
+    sel, on the listed lanes only (gather, loop, scatter)."""
+    if sel is not None:
+        return _resume(
+            lambda *a: interval_search_plain(fm, codes, *a, max_steps),
+            state, sel, lanes, max_rst, l_min, l_max)
     sp, ep, nsp, nep, ml, ptr, done, status = state.clone().unbind(0)
     done = done.bool()
     n = sp.shape[0]
@@ -191,9 +211,11 @@ def interval_search_plain(fm: FmArrays, codes, lanes, max_rst, l_min,
 
 
 def interval_search_state(fm: FmArrays, codes, lanes, max_rst, l_min,
-                          l_max, state, max_steps: int) -> torch.Tensor:
+                          l_max, state, max_steps: int,
+                          sel=None) -> torch.Tensor:
     """Run up to max_steps steps of the backward search on every live lane
-    of an [8, n] carry; returns the new carry. codes: int32[B2, W] read
+    of an [8, n] carry (with sel, int32[m] of distinct lane indices, on the
+    listed lanes only); returns the new carry. codes: int32[B2, W] read
     codes; lanes/max_rst/l_min/l_max: int32[n]; all contiguous, on one
     device."""
     n = state.shape[1]
@@ -207,17 +229,20 @@ def interval_search_state(fm: FmArrays, codes, lanes, max_rst, l_min,
                     ("l_max", l_max)):
         kernels.check(name, t, torch.int32, (n,), dev)
     kernels.check("state", state, torch.int32, (8, n), dev)
+    if sel is not None:
+        kernels.check("sel", sel, torch.int32, (sel.numel(),), dev)
     if not kernels.launch_device(state):
         return interval_search_plain(fm, codes, lanes, max_rst, l_min, l_max,
-                                     state, max_steps)
-    out = torch.empty_like(state)
+                                     state, max_steps, sel)
+    out = torch.empty_like(state) if sel is None else state.clone()
     with torch.cuda.device(dev):
         kernels.call("interval_search", kernels.ptr(fm.occ32),
                      fm.occ32.shape[0], kernels.ptr(fm.rank),
                      kernels.ptr(codes), codes.shape[1], kernels.ptr(lanes),
                      kernels.ptr(max_rst), kernels.ptr(l_min),
                      kernels.ptr(l_max), kernels.ptr(state),
-                     kernels.ptr(out), n, int(max_steps),
+                     kernels.ptr(out), n, kernels.ptr(sel),
+                     n if sel is None else sel.numel(), int(max_steps),
                      kernels.stream(dev))
     kernels.launches["interval_search"] += 1
     return out
@@ -232,8 +257,13 @@ def rw_init(start_rows, ptrs) -> torch.Tensor:
 
 
 def row_walks_plain(fm: FmArrays, codes, lanes, max_lens, state,
-                    trace_cap: int) -> torch.Tensor:
-    """Plain torch version of the K2 kernel: the JAX no-trace loop."""
+                    trace_cap: int, sel=None) -> torch.Tensor:
+    """Plain torch version of the K2 kernel: the JAX no-trace loop; with
+    sel, on the listed slots only (gather, loop, scatter)."""
+    if sel is not None:
+        return _resume(
+            lambda *a: row_walks_plain(fm, codes, *a, trace_cap),
+            state, sel, lanes, max_lens)
     sp, ptr, cnt, done, bad = state.clone().unbind(0)
     done, bad = done.bool(), bad.bool()
     W = codes.shape[1]
@@ -258,9 +288,10 @@ def row_walks_plain(fm: FmArrays, codes, lanes, max_lens, state,
 
 
 def row_walks_state(fm: FmArrays, codes, lanes, max_lens, state,
-                    trace_cap: int) -> torch.Tensor:
-    """Run up to trace_cap LF steps on every live lane of a [5, n] carry;
-    returns the new carry."""
+                    trace_cap: int, sel=None) -> torch.Tensor:
+    """Run up to trace_cap LF steps on every live lane of a [5, n] carry
+    (with sel, int32[m] of distinct slot indices, on the listed slots
+    only); returns the new carry."""
     n = state.shape[1]
     dev = state.device
     kernels.check("lfc", fm.lfc, torch.int32, device=dev)
@@ -268,14 +299,18 @@ def row_walks_state(fm: FmArrays, codes, lanes, max_lens, state,
     kernels.check("lanes", lanes, torch.int32, (n,), dev)
     kernels.check("max_lens", max_lens, torch.int32, (n,), dev)
     kernels.check("state", state, torch.int32, (5, n), dev)
+    if sel is not None:
+        kernels.check("sel", sel, torch.int32, (sel.numel(),), dev)
     if not kernels.launch_device(state):
-        return row_walks_plain(fm, codes, lanes, max_lens, state, trace_cap)
-    out = torch.empty_like(state)
+        return row_walks_plain(fm, codes, lanes, max_lens, state, trace_cap,
+                               sel)
+    out = torch.empty_like(state) if sel is None else state.clone()
     with torch.cuda.device(dev):
         kernels.call("row_walks", kernels.ptr(fm.lfc), fm.lfc.shape[0],
                      kernels.ptr(codes), codes.shape[1], kernels.ptr(lanes),
                      kernels.ptr(max_lens), kernels.ptr(state),
-                     kernels.ptr(out), n, int(trace_cap),
+                     kernels.ptr(out), n, kernels.ptr(sel),
+                     n if sel is None else sel.numel(), int(trace_cap),
                      kernels.stream(dev))
     kernels.launches["row_walks"] += 1
     return out

@@ -115,9 +115,11 @@ def _set_bits(words: np.ndarray, h: np.ndarray) -> None:
     np.bitwise_or.at(words, h >> 5, (np.uint32(1) << bit.astype(np.uint32)))
 
 
-def _golden_codes(W):
-    """(codes2 uint8[2B, W], lengths2 int32[2B]) of the golden reads that
-    fit width W: forward rows, then reverse-complement rows."""
+def _golden_codes(W, min_len=0, Bp=None):
+    """(codes2 uint8[2Bp, W], lengths2 int32[2Bp]) of the golden reads of
+    min_len to W codes: forward rows, then reverse-complement rows, each
+    half padded with empty rows to Bp (default: the read count), as the
+    classifier encodes a chunk."""
     from desamba_tpu_torch.io.fastx import read_fastx
 
     code = np.full(256, 1, np.uint8)
@@ -126,8 +128,8 @@ def _golden_codes(W):
     root = os.path.dirname(os.path.abspath(__file__))
     reads = [r.seq for r in read_fastx(os.path.join(root, "golden",
                                                     "reads.fq"))
-             if len(r.seq) <= W]
-    B = len(reads)
+             if min_len <= len(r.seq) <= W]
+    B = Bp or len(reads)
     codes = np.zeros((2 * B, W), np.uint8)
     lens = np.zeros(2 * B, np.int32)
     for i, s in enumerate(reads):
@@ -335,6 +337,63 @@ def check_locate_coverage(res, expand, groups, P):
     for name, want in (("refs0", 0), ("refs1", 1), ("refs5", P)):
         assert ok[g[name]].all() and (n_occ[g[name]] == want).all(), name
     assert 0 < int(ok[g["random"]].sum()) < len(g["random"])
+
+
+# ------------------------------------------------ stage 2 compactions --
+STAGE2_BURSTS = ("IV_BURST", "IV_MID", "WALK_BURST", "WALK_MID")
+
+
+def golden_stage2_inputs(ek, W=2048, Bp=64):
+    """Stage 2's inputs (codes_i, lengths2, lo26, kidx, runlen) on the
+    CPU for the golden reads of the width-W bucket (W/2 < length <= W),
+    encoded at Bp rows, through the plain stages 0 and 1."""
+    from desamba_tpu_torch.ops.seeds import stage1_plain
+
+    codes, lens = _golden_codes(W, min_len=W // 2 + 1, Bp=Bp)
+    c2, l2 = torch.from_numpy(codes), torch.from_numpy(lens)
+    lo26, kidx, runlen, _ = stage1_plain(ek.w01, c2, l2, ek.lek,
+                                         ek.single_base_max, ek.mask_bits,
+                                         ek.n_words0)
+    return c2.to(torch.int32), l2, lo26, kidx, runlen
+
+
+def compact_masks(n, seed):
+    """{case: int32[n] done row}: no lane live, every lane live, only the
+    two end lanes live, and random rows with 3%, 50% and 97% live."""
+    rng = np.random.default_rng(seed)
+    ends = np.ones(n, np.int32)
+    ends[[0, -1]] = 0
+    rows = dict(none=np.ones(n), every=np.zeros(n), ends=ends,
+                **{f"p{p}": rng.random(n) >= p / 100 for p in (3, 50, 97)})
+    return {k: torch.from_numpy(v.astype(np.int32)) for k, v in rows.items()}
+
+
+def compact_caps(n):
+    """Caps for n lanes: 1, one that binds (n / 8), n and past n."""
+    return sorted({1, max(1, n // 8), n, n + 5})
+
+
+def row_grid_inputs(S, seed):
+    """row_grid's inputs on S lanes: ([8, S] carry, seed_ok bool[S], lane
+    int32[S], s_idx int32[S]). Intervals of -2..3 rows (R = 2 rows a lane
+    at most are valid), most lanes seeded; the last lane at
+    sp = ep = INT32_MAX (the padding slots' row sp + 1 wraps), one lane
+    at sp = INT32_MAX - 1, ep = INT32_MAX, and match_len at the int32 ends
+    (s_idx - match_len wraps)."""
+    rng = np.random.default_rng(seed)
+    st = rng.integers(-50, 5000, (8, S)).astype(np.int64)
+    st[3] = st[2] + rng.integers(-2, 4, S)
+    ok = rng.random(S) < 0.8
+    ml = st[4]
+    if S > 4:
+        st[2, 1], st[3, 1] = I32_MAX - 1, I32_MAX
+        ml[2], ml[3] = I32_MIN, I32_MAX
+        ok[1:4] = True
+    st[2, -1] = st[3, -1] = I32_MAX
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(
+        np.int32))
+    return (i32(st), torch.from_numpy(ok), i32(np.arange(S) // 21),
+            i32(rng.integers(-5, 3000, S)))
 
 
 # ---------------------------------------------------- stages 0 and 4 --
@@ -846,6 +905,195 @@ def test_wrappers_reject_bad_inputs(cuda):
         band_score_packed(rw.to(torch.int32), z.cpu(), ww, z, z, 16)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1025, 172032])
+def test_compact_kernel(cuda, n):
+    """compact on every edge mask and cap against compact_plain, then the
+    source-list form on that output (a second done row, every cap up to
+    the first cut's, and a list with entries outside [0, n))."""
+    from desamba_tpu_torch.ops.compact import compact, compact_plain
+
+    rng = np.random.default_rng(n)
+    before = kernels.launches["compact"]
+    calls = 0
+    odd = torch.tensor([n, -1, 0, n - 1, n + 7], dtype=torch.int32)
+    for name, done in compact_masks(n, seed=n).items():
+        dc = done.to(cuda)
+        for cap in compact_caps(n):
+            got, ref = compact(dc, cap), compact_plain(done, cap)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), ref), (name, cap)
+            done_b = torch.from_numpy((rng.random(n) < 0.5).astype(np.int32))
+            for cap3 in compact_caps(cap):
+                g3 = compact(done_b.to(cuda), cap3, got)
+                torch.cuda.synchronize()
+                assert torch.equal(g3.cpu(), compact_plain(done_b, cap3,
+                                                           ref)), (name, cap3)
+            g4 = compact(dc, 3, odd.to(cuda))
+            assert torch.equal(g4.cpu(), compact_plain(done, 3, odd))
+            calls += 2 + len(compact_caps(cap))
+    assert kernels.launches["compact"] == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 1023, 1025, 172032])
+def test_row_grid_kernel(cuda, S):
+    """row_grid against row_grid_plain with caps that bind, the exact
+    valid count and past it, on row_grid_inputs (int32 wraps included)."""
+    from desamba_tpu_torch.ops.compact import row_grid, row_grid_plain
+
+    args = row_grid_inputs(S, seed=S)
+    on_card = [t.to(cuda) for t in args]
+    sel = row_grid_plain(*args, 2 * S)[0]
+    n_valid = int((sel < 2 * S).sum())
+    before = kernels.launches["row_grid"]
+    caps = sorted({1, max(1, n_valid // 2), n_valid or 1, n_valid + 7})
+    for cap in caps:
+        got = row_grid(*on_card, cap)
+        ref = row_grid_plain(*args, cap)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref, strict=True):
+            assert torch.equal(g.cpu(), r), cap
+    assert kernels.launches["row_grid"] == before + len(caps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1025, 172032])
+def test_resume_kernels_through_an_index_list(cuda, tables, n):
+    """interval_search_state and row_walks_state with sel (caps 1, n/8
+    and past n of the live lanes) against their plain versions, which
+    gather, loop and scatter; the input carry is left as it was."""
+    from desamba_tpu_torch.ops.compact import compact
+    from desamba_tpu_torch.ops.fm import (interval_search_plain,
+                                          interval_search_state, iv_init,
+                                          row_walks_plain, row_walks_state,
+                                          rw_init)
+
+    fm = _to(tables, cuda)
+    d = {k: v.to(cuda) for k, v in _search_inputs(fm, n, 300, n + 2).items()}
+    args = (fm, d["codes"], d["lane"], d["max_rst"], d["l_min"], d["l_max"])
+    st = interval_search_state(*args, iv_init(d["sp0"], d["ep0"],
+                                              d["s_idx"]), 0)
+    kept = st.clone()
+    mlen = torch.clamp(d["s_idx"] - 13, min=0).to(torch.int32)
+    wst = rw_init(st[2], st[5])
+    for cap in sorted({1, max(1, n // 8), n + 5}):
+        sel = compact(st[6], cap)
+        got = interval_search_state(*args, st, 8, sel=sel)
+        ref = interval_search_plain(*args, st, 8, sel=sel)
+        wsel = compact(wst[3], cap)
+        wgot = row_walks_state(fm, d["codes"], d["lane"], mlen, wst, 16,
+                               sel=wsel)
+        wref = row_walks_plain(fm, d["codes"], d["lane"], mlen, wst, 16,
+                               sel=wsel)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(wgot, wref), cap
+        assert torch.equal(st, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bursts", [(0, 0, 0, 0), None],
+                         ids=["bursts0", "defaults"])
+def test_stage2_kernels_golden_chunk(cuda, tables, monkeypatch, bursts):
+    """Stage 2 on the card under KERNEL_OPS equals stage 2 under
+    PLAIN_OPS on the CPU, on the golden W = 2048 chunk at Bp = 64, with
+    the bursts before the cuts at 0 (four caps bind) and at the defaults;
+    each kernel launches as often as stage 2 calls it."""
+    from desamba_tpu_torch.engine import fast_engine as tfe
+
+    if bursts is not None:
+        for name, v in zip(STAGE2_BURSTS, bursts):
+            monkeypatch.setattr(tfe, name, v)
+    ek = tables[1]
+    inputs = golden_stage2_inputs(ek)
+    build = lambda ops: tfe.build_stages(ek.lek, ek.single_base_max,
+                                         ek.mask_bits, 20, ek.n_words0,
+                                         ops=ops)[1]
+    before = dict(kernels.launches)
+    got = build(tfe.KERNEL_OPS)(_to(tables, cuda),
+                                *(t.to(cuda) for t in inputs))
+    ref = build(tfe.PLAIN_OPS)(tables[0], *inputs)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, ref, strict=True)):
+        assert torch.equal(g.cpu(), r), i
+    for name, k in (("interval_search", 3), ("compact", 4), ("row_grid", 1),
+                    ("row_walks", 3)):
+        assert kernels.launches[name] == before[name] + k, name
+
+
+@pytest.mark.cuda
+def test_stage2_wrappers_reject_bad_inputs(cuda, tables):
+    """compact, row_grid and the loops' sel refuse other dtypes, shapes
+    and devices before anything launches."""
+    from desamba_tpu_torch.ops.compact import compact, row_grid
+    from desamba_tpu_torch.ops.fm import interval_search_state, iv_init
+
+    done = torch.zeros(100, dtype=torch.int32, device=cuda)
+    src = torch.arange(10, dtype=torch.int32, device=cuda)
+    st, ok, lane, s_idx = (t.to(cuda) for t in row_grid_inputs(50, 1))
+    before = dict(kernels.launches)
+    bad = [lambda: compact(done.long(), 8), lambda: compact(done, 8,
+                                                            src.cpu()),
+           lambda: compact(done.cpu(), 8, src), lambda: compact(done, 0),
+           lambda: compact(done[::2], 8),
+           lambda: row_grid(st, ok.cpu(), lane, s_idx, 16),
+           lambda: row_grid(st, ok, lane.long(), s_idx, 16),
+           lambda: row_grid(st[:, :0], ok[:0], lane[:0], s_idx[:0], 16)]
+    fm = _to(tables, cuda)
+    d = {k: v.to(cuda) for k, v in _search_inputs(fm, 50, 64, 3).items()}
+    state = iv_init(d["sp0"], d["ep0"], d["s_idx"])
+    args = (fm, d["codes"], d["lane"], d["max_rst"], d["l_min"], d["l_max"],
+            state, 4)
+    bad += [lambda: interval_search_state(*args, sel=src.cpu()),
+            lambda: interval_search_state(*args, sel=src.long())]
+    for f in bad:
+        with pytest.raises(ValueError):
+            f()
+    assert kernels.launches == before
+
+
+@pytest.mark.cuda
+def test_compact_entry_points_refuse_short_scratch(cuda):
+    """compact.cu's entry points refuse a scan scratch shorter than one
+    int32 for each of their blocks of 1,024 entries, and with one that
+    long equal the plain versions (2,049 lanes and 1,025 x 2 grid entries
+    need three)."""
+    from desamba_tpu_torch.constants import ROWS_PER_SEARCH as R
+    from desamba_tpu_torch.ops.compact import compact_plain, row_grid_plain
+
+    assert R == 2
+    n, S, cap, P = 2049, 1025, 64, kernels.ptr
+    done = torch.from_numpy(
+        (np.random.default_rng(5).random(n) < 0.5).astype(np.int32))
+    grid = row_grid_inputs(S, 2)
+    dc, gc = done.to(cuda), [t.to(cuda) for t in grid]
+    before = dict(kernels.launches)
+    for k in (2, 3):
+        counts = torch.empty(k, dtype=torch.int32, device=cuda)
+        out = torch.empty(cap, dtype=torch.int32, device=cuda)
+        sel = torch.empty(cap, dtype=torch.int32, device=cuda)
+        walk = torch.empty((5, cap), dtype=torch.int32, device=cuda)
+        wl = torch.empty((4, cap), dtype=torch.int32, device=cuda)
+        calls = [
+            lambda: kernels.call("compact", P(dc), n, P(None), n, cap,
+                                 P(counts), k, P(out), kernels.stream(cuda)),
+            lambda: kernels.call("row_grid", *map(P, gc), S, R, cap,
+                                 P(counts), k, P(sel), P(walk), P(wl),
+                                 kernels.stream(cuda))]
+        for f in calls:
+            if k == 2:
+                with pytest.raises(RuntimeError, match="cudaError"):
+                    f()
+            else:
+                f()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), compact_plain(done, cap))
+    for g, r in zip((sel, walk, wl), row_grid_plain(*grid, cap),
+                    strict=True):
+        assert torch.equal(g.cpu(), r)
+    assert kernels.launches == before
+
+
 # ------------------------------------------------------------ any host --
 def test_stage1_cpu_route_and_input_checks(tables):
     """On the CPU the wrapper runs stage1_plain and counts nothing; bad
@@ -977,6 +1225,89 @@ def test_combine_cpu_route_and_input_checks():
         a[i] = v
         with pytest.raises(ValueError):
             combine(*a)
+
+
+def test_compact_cpu_route_and_input_checks():
+    """On the CPU the compact wrapper runs compact_plain and counts
+    nothing; a source list's entries outside [0, n) are skipped; bad
+    inputs raise on any device."""
+    from desamba_tpu_torch.ops.compact import compact, compact_plain
+
+    done = compact_masks(300, seed=1)["p50"]
+    src = torch.tensor([300, -1, 0, 299, 307, 5, 7], dtype=torch.int32)
+    before = dict(kernels.launches)
+    for args in ((done, 40), (done, 400), (done, 2, src), (done, 9, src)):
+        assert torch.equal(compact(*args), compact_plain(*args))
+    live = [s for s in (0, 299, 5, 7) if done[s] == 0]
+    assert compact(done, 9, src).tolist() == live + [300] * (9 - len(live))
+    assert kernels.launches == before
+    bad = [(done.long(), 8, None), (done[::2], 8, None),
+           (done.reshape(20, 15), 8, None), (done, 0, None),
+           (done, 8, src.long()), (done, 8, src.reshape(7, 1))]
+    for args in bad:
+        with pytest.raises(ValueError):
+            compact(*args)
+
+
+def test_row_grid_cpu_route_and_input_checks():
+    """On the CPU the row_grid wrapper runs row_grid_plain and counts
+    nothing; bad inputs raise on any device."""
+    from desamba_tpu_torch.ops.compact import row_grid, row_grid_plain
+
+    args = list(row_grid_inputs(50, seed=3))
+    before = dict(kernels.launches)
+    for cap in (16, 200):
+        for g, r in zip(row_grid(*args, cap), row_grid_plain(*args, cap),
+                        strict=True):
+            assert g.dtype == torch.int32 and torch.equal(g, r)
+    assert kernels.launches == before
+    st, ok, lane, s_idx = args
+    bad = [(0, st.long()), (0, st[:7]), (1, ok.int()), (2, lane[:-1]),
+           (3, s_idx.long()), (3, s_idx[::2])]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            row_grid(*a, 16)
+    with pytest.raises(ValueError):
+        row_grid(*args, 0)
+    with pytest.raises(ValueError):
+        row_grid(st[:, :0], ok[:0], lane[:0], s_idx[:0], 16)
+
+
+def test_resume_cpu_route_and_input_checks(tables):
+    """On the CPU, interval_search_state and row_walks_state with sel run
+    their plain versions and count nothing; only the listed lanes change;
+    a sel of another dtype or shape raises."""
+    from desamba_tpu_torch.ops.fm import (interval_search_plain,
+                                          interval_search_state, iv_init,
+                                          row_walks_plain, row_walks_state,
+                                          rw_init)
+
+    fm = tables[0]
+    d = _search_inputs(fm, 200, 128, seed=9)
+    args = (fm, d["codes"], d["lane"], d["max_rst"], d["l_min"], d["l_max"])
+    st = iv_init(d["sp0"], d["ep0"], d["s_idx"])
+    sel = torch.tensor([3, 200, 0, 150, -1], dtype=torch.int32)
+    wst = rw_init(d["sp0"], d["s_idx"])
+    mlen = torch.full((200,), 20, dtype=torch.int32)
+    before = dict(kernels.launches)
+    got = interval_search_state(*args, st, 5, sel=sel)
+    assert torch.equal(got, interval_search_plain(*args, st, 5, sel=sel))
+    wgot = row_walks_state(fm, d["codes"], d["lane"], mlen, wst, 5, sel=sel)
+    assert torch.equal(wgot, row_walks_plain(fm, d["codes"], d["lane"], mlen,
+                                             wst, 5, sel=sel))
+    assert kernels.launches == before
+    other = torch.ones(200, dtype=torch.bool)
+    other[[3, 0, 150]] = False
+    assert torch.equal(got[:, other], st[:, other])
+    assert torch.equal(wgot[:, other], wst[:, other])
+    assert not torch.equal(got, st)
+    for bad in (sel.long(), sel.reshape(5, 1)):
+        with pytest.raises(ValueError):
+            interval_search_state(*args, st, 5, sel=bad)
+        with pytest.raises(ValueError):
+            row_walks_state(fm, d["codes"], d["lane"], mlen, wst, 5, sel=bad)
 
 
 def test_numpy_hashes_equal_the_u64_emulation():
