@@ -48,7 +48,22 @@ Phases (any failure raises, and the script exits nonzero):
      pure-device classify_batch unprofiled and one under torch.profiler:
      device busy share = kernel time over the unprofiled wall, and each
      hand kernel's device time per launch as the path runs it
-Prints a `kernels` JSON line, then {"ok": true, "device": {...}} last.
+  6. the bit-exact validation engine (TpuClassifier, `classify --engine
+     tpu`): on the golden index (built from tests/golden/ref.fa by a
+     child process) its SAM must equal tests/golden/classify.sam byte for
+     byte; then the first N_VALIDATE bench reads, with the fast
+     classifier's FM tables shared, through the kernels (launch counts set
+     to 0 just before, read just after; each of the path's three kernels
+     must launch; each device call timed from launch to sync, the rest
+     host work) and through the plain versions: the two SAMs must be
+     equal; reads/s of both, the engine's stats, the primary hit's
+     agreement with the native engine on (ref, direction, score, pos),
+     and each of the path's kernels (probe_reads, K1, row_walks_trace)
+     held against its plain version on its first call, timed with L2
+     evicted, beside its bound
+Prints a `kernels` JSON line (the fast path's ten kernels, then the
+validation engine's two; K1's row also carries its validation-path call),
+then {"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
 """
@@ -74,8 +89,11 @@ INT32_OPS_PER_S = 67e12 / 4
 SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
 STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
-# the CUDA functions each kernel's wrapper launches (its profiler rows),
-# once each a call
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+GOLDEN_IDX = os.path.join(ROOT, "build", "golden_idx")
+N_VALIDATE = 768      # bench reads through the validation engine (phase 6)
+# the CUDA functions each fast-path kernel's wrapper launches (its
+# profiler rows), once each a call
 GLOBAL = {
     "unpack": ("unpack_kernel",),
     "stage1": ("stage1_kernel",),
@@ -88,6 +106,7 @@ GLOBAL = {
     "band_score_packed": ("band_score_kernel",),
     "combine": ("combine_kernel",),
 }
+FAST_KERNELS = tuple(GLOBAL)
 # the calls through an index list that stage 2 makes, each held against
 # its plain version besides its kernel's first call
 INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]", "compact[src]")
@@ -102,6 +121,8 @@ REPLACES = {
     "band_windows": "desamba_tpu/engine/fast_engine.py:420",
     "band_score_packed": "desamba_tpu/ops/matchblock.py:201",
     "combine": "desamba_tpu/engine/fast_engine.py:452",
+    "probe_reads": "desamba_tpu/ops/ekmer.py:215",
+    "row_walks_trace": "desamba_tpu/ops/fm.py:262",
 }
 
 
@@ -265,21 +286,21 @@ def kernel_inputs(cl, packed, lens) -> dict:
     """{kernel: (args, keyword args) of its first call} when the stages
     run on a chunk; "kernel[sel]" / "kernel[src]" for the first call
     through an index list."""
-    from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
 
     cap: dict = {}
-
-    def recording(name, fn):
-        def call(*args, **kw):
-            cap.setdefault(f"{name}[{','.join(kw)}]" if kw else name,
-                           (args, kw))
-            return fn(*args, **kw)
-        return call
-
     stage_calls(cl, packed, lens,
-                {k: recording(k, KERNEL_OPS[k]) for k in kernels.KERNELS})
+                {k: recording(cap, k, f) for k, f in KERNEL_OPS.items()})
     return cap
+
+
+def recording(cap: dict, name: str, fn):
+    """fn, recording (args, keyword args) of its first call into cap, under
+    name, or "name[kw,...]" for a call with keyword arguments."""
+    def call(*args, **kw):
+        cap.setdefault(f"{name}[{','.join(kw)}]" if kw else name, (args, kw))
+        return fn(*args, **kw)
+    return call
 
 
 def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
@@ -295,19 +316,29 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
         from desamba_tpu_torch.ops.ekmer import _probe_addrs
 
         w01, codes2, l2, lek, sbm, mb, nw0 = args
-        # the distinct bitmap sectors the probes need, each moved once (a
-        # sector read again can come from L2): bitmap 1 at every point
-        # that passes the filter and lies in the read, bitmap 2 only
-        # where bitmap 1's bit is set
-        want, (wi1, sh1), (wi2, _) = _probe_addrs(codes2, l2, lek, sbm, mb,
-                                                   stride=STEP_EK)
-        m = want.reshape(-1)
-        wi1 = wi1[m]
-        set1 = ((w01[wi1].to(torch.int64) >> sh1[m]) & 1).bool()
-        sectors = distinct_sectors(wi1, wi2[m][set1] + nw0)
+        want, *addrs = _probe_addrs(codes2, l2, lek, sbm, mb, stride=STEP_EK)
         grid = out[0].numel()
-        return (nbytes(codes2, l2, *out) + SECTOR * sectors,
+        return (nbytes(codes2, l2, *out)
+                + SECTOR * bloom_sectors(w01, nw0, want, *addrs),
                 grid * (4 * lek + 70))
+    if name == "probe_reads":
+        from desamba_tpu_torch.ops.ekmer import _probe_addrs
+
+        ek, codes, lengths = args
+        want, *addrs = _probe_addrs(codes, lengths, ek.lek,
+                                   ek.single_base_max, ek.mask_bits)
+        return (nbytes(codes, lengths, out)
+                + SECTOR * bloom_sectors(ek.w01, ek.n_words0, want, *addrs),
+                out.numel() * (4 * ek.lek + 70))
+    if name == "row_walks_trace":
+        fm, codes, lanes, rows, ptrs, max_lens = args
+        # an LF read (one sector) and a read code a step, and one more read
+        # where a lane stopped; the lanes' inputs in, the trace and the
+        # result rows out once
+        reads = int(out["steps"].sum(dtype=torch.int64)
+                    + (1 - out["overflow"]).sum(dtype=torch.int64))
+        return (nbytes(lanes, rows, ptrs, max_lens, *out.values())
+                + reads * (SECTOR + 4), reads * 20)
     if name == "interval_search":
         fm, codes, lanes, max_rst, l_min, l_max, state, _ = args
         steps = int((state[5] - out[5]).sum(dtype=torch.int64))
@@ -365,6 +396,20 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
     # compare, masks and the 9-code run test
     return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
             read_w.numel() * K * 25)
+
+
+def bloom_sectors(w01, nw0: int, want, addr1, addr2) -> int:
+    """The distinct bitmap sectors the probes need, each moved once (a
+    sector read again can come from L2): bitmap 1 at every point that
+    passes the filter and lies in the read (want), bitmap 2 only where
+    bitmap 1's bit is set; addr1, addr2: each point's (word index, bit
+    shift) in the two bitmaps, as _probe_addrs gives them."""
+    import torch
+
+    m = want.reshape(-1)
+    wi1, sh1 = addr1[0][m], addr1[1][m]
+    set1 = ((w01[wi1].to(torch.int64) >> sh1) & 1).bool()
+    return distinct_sectors(wi1, addr2[0][m][set1] + nw0)
 
 
 def nbytes(*ts) -> int:
@@ -511,7 +556,6 @@ def check_kernels(cap: dict) -> dict:
     calls, keyed as kernel_inputs keys them."""
     import torch
 
-    from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
     shapes = {
@@ -531,8 +575,7 @@ def check_kernels(cap: dict) -> dict:
         "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
                                         f"W={16 * a[0].shape[1]} K={a[5]}"),
     }
-    missing = [k for k in (*kernels.KERNELS, *INDEX_LIST_CALLS)
-               if k not in cap]
+    missing = [k for k in (*KERNEL_OPS, *INDEX_LIST_CALLS) if k not in cap]
     if missing:
         raise AssertionError(f"no call of {missing} was captured")
     out = {}
@@ -573,7 +616,6 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
     hand kernel's device time per launch in it."""
     import torch
 
-    from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
 
     stages = {}
@@ -614,7 +656,7 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
                 kernel=e.key[:90])
            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]]
     on_path = {}
-    for name in kernels.KERNELS:
+    for name in KERNEL_OPS:
         rows = [e for e in ev if any(g in e.key for g in GLOBAL[name])]
         ms = sum(e.self_device_time_total for e in rows) / 1e3
         count = sum(e.count for e in rows if GLOBAL[name][0] in e.key)
@@ -625,6 +667,173 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
         wall_ms_profiled=box["wall"] * 1e3, device_ms=busy * 1e3,
         device_busy_share=busy / wall, top_kernels=top,
         hand_kernels=on_path))
+
+
+def make_golden_index() -> str:
+    """The index of tests/golden/ref.fa in the C reference's format,
+    written under build/golden_idx by the JAX package's builder in a child
+    process, as tests/conftest.py builds it (the port has no index builder
+    yet)."""
+    code = ("import sys\n"
+            "from desamba_tpu.index.build import build_index\n"
+            "from desamba_tpu.index.format_ref import save_ref_format\n"
+            "save_ref_format(build_index(sys.argv[1]), sys.argv[2])\n")
+    p = subprocess.run([sys.executable, "-c", code,
+                        os.path.join(GOLDEN, "ref.fa"), GOLDEN_IDX],
+                       cwd=ROOT, capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"building the golden index failed:\n"
+                           f"{p.stderr[-4000:]}")
+    return GOLDEN_IDX
+
+
+def primary_lines(sam: str) -> dict:
+    """{read name: (ref name, forward, score, pos) of its first SAM line,
+    the primary hit, or None where the read is unmapped}."""
+    out = {}
+    for ln in sam.splitlines():
+        f = ln.split("\t")
+        if f[0] not in out:
+            out[f[0]] = None if f[1] == "4" else (
+                f[2], not int(f[1]) & 0x10, int(f[11][5:]), int(f[3]))
+    return out
+
+
+def validation_phase(cl, reads, card: str) -> dict:
+    """Phase 6: the validation engine (TpuClassifier, `classify --engine
+    tpu`) on the card. The golden SAM byte for byte; then the first
+    N_VALIDATE bench reads through the kernel route (launch counts set to
+    0 just before, read just after; its device calls timed for where the
+    time goes) and the plain route, whose SAMs must be equal, beside the
+    native engine's primary hits; and each of the path's three kernels
+    held against its plain version on its first call."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.native import NativeClassifier
+    from desamba_tpu_torch.engine.tpu_engine import (KERNEL_OPS, PLAIN_OPS,
+                                                     SUB_BATCH, TpuClassifier)
+    from desamba_tpu_torch.index.loader import load_index
+    from desamba_tpu_torch.io.fastx import read_fastx
+    from desamba_tpu_torch.oracle.classify import i32
+
+    t0 = time.time()
+    gidx = load_index(make_golden_index())
+    greads = [(r.name, r.seq, r.qual)
+              for r in read_fastx(os.path.join(GOLDEN, "reads.fq"))]
+    t1 = time.time()
+    gsam = TpuClassifier(gidx, device="cuda").classify_to_sam(greads)
+    golden = dict(build_s=t1 - t0, classify_s=time.time() - t1,
+                  reads=len(greads))
+    if gsam != open(os.path.join(GOLDEN, "classify.sam")).read():
+        raise AssertionError("the validation engine's SAM on the card "
+                             "differs from tests/golden/classify.sam")
+    log(f"smoke: golden SAM equal on the card ({golden})")
+
+    # each device call of the kernel route timed from its launch to a
+    # sync (CUDA events for its device span), for where the time goes
+    spent = {k: [0.0, 0.0, 0] for k in KERNEL_OPS}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t = time.time()
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            b.synchronize()
+            spent[name][0] += time.time() - t
+            spent[name][1] += a.elapsed_time(b) / 1e3
+            spent[name][2] += 1
+            return out
+        return call
+
+    sub = reads[:N_VALIDATE]
+    tc = TpuClassifier(cl.idx, device="cuda", fm=cl.fm)
+    tc.ops = {k: timed(k, f) for k, f in tc.ops.items()}
+    kernels.reset_launches()
+    t0 = time.time()
+    sam = tc.classify_to_sam(sub)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: kernels.launches[k] for k in KERNEL_OPS}
+    if not all(launches.values()):
+        raise AssertionError(f"a validation kernel was not launched: "
+                             f"{launches}")
+    stats = {k: tc.stats[k] for k in ("fm_searches", "fm_walks",
+                                      "walk_fallback", "cand_fallback")}
+    tp = TpuClassifier(cl.idx, device="cuda", plain=True, fm=cl.fm)
+    cap: dict = {}
+    tp.ops = {k: recording(cap, k, f) for k, f in tp.ops.items()}
+    t0 = time.time()
+    sam_plain = tp.classify_to_sam(sub)
+    torch.cuda.synchronize()
+    wall_plain = time.time() - t0
+    if sam_plain != sam or {k: tp.stats[k] for k in stats} != stats:
+        a, b = primary_lines(sam), primary_lines(sam_plain)
+        raise AssertionError(
+            f"validation engine: kernel and plain routes differ (stats "
+            f"{stats} vs {dict(tp.stats)}; primary lines of "
+            f"{sum(a[k] != b.get(k) for k in a)} reads)")
+    del tp
+
+    calls_s = sum(v[0] for v in spent.values())
+    breakdown = {k: dict(wall_s=v[0], share=v[0] / wall,
+                         event_ms_per_call=v[1] * 1e3 / max(1, v[2]),
+                         calls=v[2]) for k, v in spent.items()}
+    breakdown["host (encode, copies, replay, rescore, SAM)"] = dict(
+        wall_s=wall - calls_s, share=1 - calls_s / wall)
+
+    nat = NativeClassifier(cl.idx, n_threads=os.cpu_count() or 1)
+    names = cl.idx.ref_names
+    prim = primary_lines(sam)
+    differ = []
+    for r in nat.classify_batch(sub):
+        h = next((h for h in r.hits if h.primary == 1), None)
+        n = None if h is None else (names[h.ref_ID], bool(h.direction),
+                                    i32(h.sum_score), i32(h.t_st))
+        if prim.get(r.name) != n:
+            differ.append(dict(read=r.name, tpu=prim.get(r.name), native=n))
+    agree = 1 - len(differ) / len(sub)
+
+    shapes = {"probe_reads": lambda a: (f"rows={a[1].shape[0]} "
+                                        f"W={a[1].shape[1]} lek={a[0].lek} "
+                                        f"mask_bits={a[0].mask_bits}"),
+              "interval_search": lambda a: (f"n={a[6].shape[1]} "
+                                            f"W={a[1].shape[1]} "
+                                            f"max_steps={a[7]}"),
+              "row_walks_trace": lambda a: (f"n={a[2].shape[0]} "
+                                            f"W={a[1].shape[1]} cap=96")}
+    checks = {}
+    for name, (args, kw) in cap.items():
+        kern, plain = KERNEL_OPS[name], PLAIN_OPS[name]
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err != 0:
+            raise AssertionError(f"{name} (validation engine): kernel differs"
+                                 f" from its plain version (max abs err "
+                                 f"{err}) at {shapes[name](args)}")
+        bound_ms, bound_by = bound(name, args, ref)
+        checks[name] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: kern(*args), 20, cold=True),
+            plain_ms=cuda_ms(lambda: plain(*args), 5, cold=True),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            shape=shapes[name](args), launches=launches[name],
+            path_ms=breakdown[name]["event_ms_per_call"])
+        log(f"smoke: {name} (validation engine) [{checks[name]['shape']}] "
+            f"equal; kernel {checks[name]['ms']:.4f} ms, plain "
+            f"{checks[name]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return dict(card=card, golden=golden, reads=len(sub),
+                sub_batch=SUB_BATCH, reads_per_s=len(sub) / wall,
+                plain_reads_per_s=len(sub) / wall_plain, wall_s=wall,
+                plain_wall_s=wall_plain,
+                stats=stats, launches=launches, breakdown=breakdown,
+                native_agreement=agree, native_differ=differ[:20],
+                n_native_differ=len(differ), checks=checks)
 
 
 def make_data() -> tuple[str, str]:
@@ -740,8 +949,8 @@ def main() -> int:
         fallback.append(cl.stats["n_fallback"] / max(1, cl.stats["n_reads"]))
         log(f"smoke: run {it}: {n} reads in {dt:.3f} s = {n / dt:.1f} "
             f"reads/s (fallback {fallback[-1]:.4f})")
-    launches = dict(kernels.launches)
-    if not all(launches[k] > 0 for k in kernels.KERNELS):
+    launches = {k: kernels.launches[k] for k in FAST_KERNELS}
+    if not all(launches[k] > 0 for k in FAST_KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
     # launches a chunk (stage 1 launches once a chunk): stages 0, 3 and 4
     # and stage 2's row grid once; the two loops three times, the
@@ -830,6 +1039,12 @@ def main() -> int:
                                  f"at {key} (at most {STAGE2_MAX_LAUNCHES})")
     on_path = tg["batch"]["hand_kernels"]
 
+    # ---- phase 6: the validation engine
+    val = validation_phase(cl, reads, card)
+    print("validation " + json.dumps(
+        {k: v for k, v in val.items() if k != "checks"}), flush=True)
+    vc = val["checks"]
+
     rows = [dict(name=k, route="cuda", source=kernels.source_path(k),
                  replaces=REPLACES[k], launches=launches[k],
                  **{f: checks[k][f] for f in (
@@ -838,7 +1053,13 @@ def main() -> int:
                  path_ms=on_path[k]["ms_per_launch"],
                  index_list={key: checks[key] for key in checks
                              if key.startswith(k + "[")})
-            for k in kernels.KERNELS]
+            for k in FAST_KERNELS]
+    # K1 on the validation path: its first call there and its launches
+    rows[[r["name"] for r in rows].index("interval_search")][
+        "validation_path"] = vc["interval_search"]
+    rows += [dict(name=k, route="cuda", source=kernels.source_path(k),
+                  replaces=REPLACES[k], **vc[k])
+             for k in ("probe_reads", "row_walks_trace")]
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "desamba_tpu",
                                       "bench")]
@@ -846,10 +1067,10 @@ def main() -> int:
         raise AssertionError(f"the smoke imported {foreign[:5]}")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    # the one card this run used
+    # the cards torch sees (the smoke needs and uses one)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

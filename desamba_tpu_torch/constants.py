@@ -10,6 +10,8 @@ from __future__ import annotations
 
 # ---- reference engine (desamba_tpu/constants.py) ----------------------
 L_PRE_IDX = 13               # 13-base prefix hash             (:9)
+PRE_IDX_MASK = 0x3FFFFFF     # 26-bit prefix mask              (:10)
+MIN_UNI_L = 35               # min unitig length kept          (:11)
 BP_PER_BLOCK = 256           # FM occ block size in bp         (:12)
 BLOCK_BYTES = 168            # 40 B base + 128 B codes         (:13)
 SINGLE_BASE_MAX_RATIO = 0.8  # low-complexity filter           (:23)
@@ -25,20 +27,39 @@ EK_SIZE_LADDER = [
     ((1 << 37) // 9, 0x200000000, 36, 19),
     ((1 << 38) // 9, 0x400000000, 37, 20),
 ]
+MIN_READ_LEN = 40            # shorter reads are not classified (:38)
 STEP_EK = 3                  # island probe stride             (:39)
 SEED_RANGE = 100             # top-seed window                 (:40)
+MEM_SEARCH_FAST = 2          # fast_classify's max_rst         (:42)
+MIN_MEM_LEN_FAST = 21        #                                 (:43)
+MEM_SEARCH_SLOW = 8          # slow_classify's max_rst         (:44)
+MIN_MEM_LEN_SLOW = 20        #                                 (:45)
+LV_ERROR = 4                 # max LV edit distance            (:46)
+LV_L = 12                    # max LV query length             (:47)
+MIN_S_1 = 12                 #                                 (:48)
+MIN_S_2 = 20                 #                                 (:49)
+SP_SET_CAP = 500             # dedup ring capacity             (:50)
+MAX_DIS_MINUS = 30           # chain diagonal tolerance        (:55)
+MAX_WAITING_LEN = 400        # chain gap cap                   (:56)
+MAX_ANCHOR_OVERLAP = 3       #                                 (:57)
+CHAIN_M3_THRESHOLD = 50      # anchors >= 50: SDP chaining     (:58)
 S_A_KMER_L = 9               # sparse-align k-mer length       (:61)
+MIN_SCORE_MEM = 12           #                                 (:62)
+OVER_SEARCH_M2 = 50          #                                 (:63)
+MAX_SMS_OVERLAP = 6          #                                 (:64)
 FILTER_MIN_SCORE_2G = 26     # NGS reads                       (:67)
 FILTER_MIN_SCORE_SHORT_3G = 30  # short 3G reads               (:68)
 NGS_MAX_READ_L = 510         #                                 (:69)
 SHORT_3G_READ_L = 310        #                                 (:70)
 DEFAULT_FILTER_MIN_LENGTH = 170  # -l default                  (:71)
 DEFAULT_MIN_SCORE = 64       # -s default                      (:72)
+DEFAULT_MAX_SEC_N = 5        # -r default                      (:73)
 P_E = 0.15                   # MAPQ model                      (:77)
 Q_MEM_MAX = 2000             #                                 (:78)
 MAX_LV_WRONG = 20            #                                 (:79)
 MAX_LV_R_LEN = 20            #                                 (:80)
 N_NEEDED = 5000              # reads per batch                 (:83)
+PRIMARY, SECONDARY, SUPPLEMENTARY = 1, 2, 3  # hit kinds       (:88)
 
 # ---- fast path schedule (desamba_tpu/engine/fast_engine.py) -----------
 ROWS_PER_SEARCH = 2          # MEM_SEARCH_FAST                 (:86)

@@ -1,4 +1,6 @@
-// Per-row LF walks (the no-trace variant), one thread per walk lane.
+// Per-row LF walks, one thread per walk lane: the fast path's variant
+// without a trace (row_walks_kernel) and the validation engine's with one
+// (row_walks_trace_kernel, at the end of the file).
 //
 // Replaces desamba_tpu/ops/fm.py:row_walks (with lf_cur), the lockstep
 // bwt_single_search (cly.c:1339-1378) without the row trace: from a BWT
@@ -35,6 +37,27 @@ __device__ __forceinline__ long long jax_index(long long i, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
+// One LF step of a lane (the loop body of bwt_single_search): on a match
+// of the BWT char at sp with the read char at ptr, below max_len steps,
+// sp moves to its LF row, ptr back one and cnt up one; a pad char met
+// below max_len sets bad. Returns whether the lane stepped; a lane that
+// did not is done. Both kernels below take their steps here.
+__device__ __forceinline__ bool lf_step(const unsigned* __restrict__ lfc,
+                                        long long n_rows, const int* row,
+                                        int W, int max_len, int& sp,
+                                        int& ptr, int& cnt, int& bad) {
+  const unsigned w = lfc[jax_index(sp, n_rows)];
+  const int c = static_cast<int>(w >> kLfcShift);
+  const int want = (ptr >= 0 && ptr < W) ? row[ptr] : -1;
+  const bool is_bad = c > 5;
+  if (is_bad && cnt < max_len) bad = 1;
+  if (c != want || cnt >= max_len || is_bad) return false;
+  sp = static_cast<int>(w & kLfcRowMask);
+  ptr -= 1;
+  cnt += 1;
+  return true;
+}
+
 __global__ void row_walks_kernel(
     const unsigned* __restrict__ lfc, long long n_rows,
     const int* __restrict__ codes, int W, const int* __restrict__ lanes,
@@ -51,28 +74,55 @@ __global__ void row_walks_kernel(
   if (!done && trace_cap > 0) {
     const int* row = codes + static_cast<long long>(lanes[i]) * W;
     const int max_len = max_lens[i];
-    for (int it = 0; it < trace_cap && !done; ++it) {
-      const unsigned w = lfc[jax_index(sp, n_rows)];
-      const int c = static_cast<int>(w >> kLfcShift);
-      const int nxt = static_cast<int>(w & kLfcRowMask);
-      const int want = (ptr >= 0 && ptr < W) ? row[ptr] : -1;
-      const bool is_bad = c > 5;
-      const bool match = (c == want) && (cnt < max_len) && !is_bad;
-      if (is_bad && cnt < max_len) bad = 1;
-      if (match) {
-        sp = nxt;
-        ptr -= 1;
-        cnt += 1;
-      } else {
-        done = 1;
-      }
-    }
+    for (int it = 0; it < trace_cap && !done; ++it)
+      if (!lf_step(lfc, n_rows, row, W, max_len, sp, ptr, cnt, bad)) done = 1;
   }
   st_out[i] = sp;
   st_out[n + i] = ptr;
   st_out[2 * n + i] = cnt;
   st_out[3 * n + i] = done;
   st_out[4 * n + i] = bad;
+}
+
+// The traced walks (desamba_tpu/ops/fm.py:row_walks with
+// with_trace=True, as desamba_tpu/engine/tpu_engine.py:188-201 calls it):
+// each lane starts from (start_rows, ptrs) with a zero count and takes the
+// same steps (lf_step) for up to trace_cap steps. trace[lane, step] is the
+// row the lane reached at that step, or -1 where it took no step, so the
+// host replays the reference's sp_set dedup (cly.c:1366-1371) from the
+// trace. JAX scans all trace_cap steps; a lane that stops here writes -1
+// into the rest of its trace row, which is what those steps write there.
+// res rows: final_sp, final_ptr, steps, bad_char, overflow (still
+// walking after trace_cap steps) and stop_max (steps >= max_len).
+//
+// What bounds it: as above, one dependent random gather a step; and each
+// lane writes its trace row of trace_cap int32 once.
+__global__ void row_walks_trace_kernel(
+    const unsigned* __restrict__ lfc, long long n_rows,
+    const int* __restrict__ codes, int W, const int* __restrict__ lanes,
+    const int* __restrict__ start_rows, const int* __restrict__ ptrs,
+    const int* __restrict__ max_lens, long long n, int trace_cap,
+    int* __restrict__ trace, int* __restrict__ res) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  const int* row = codes + static_cast<long long>(lanes[i]) * W;
+  const int max_len = max_lens[i];
+  int* tr = trace + i * trace_cap;
+  int sp = start_rows[i], ptr = ptrs[i], cnt = 0, bad = 0;
+  bool done = false;
+  int it = 0;
+  for (; it < trace_cap && !done; ++it) {
+    done = !lf_step(lfc, n_rows, row, W, max_len, sp, ptr, cnt, bad);
+    tr[it] = done ? -1 : sp;
+  }
+  for (; it < trace_cap; ++it) tr[it] = -1;
+  res[i] = sp;
+  res[n + i] = ptr;
+  res[2 * n + i] = cnt;
+  res[3 * n + i] = bad;
+  res[4 * n + i] = !done;
+  res[5 * n + i] = cnt >= max_len;
 }
 
 }  // namespace
@@ -93,6 +143,26 @@ extern "C" int dsb_row_walks(const void* lfc, long long n_rows,
         static_cast<const int*>(max_lens), static_cast<const int*>(st_in),
         static_cast<int*>(st_out), n, static_cast<const int*>(sel), m,
         trace_cap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsb_row_walks_trace(const void* lfc, long long n_rows,
+                                   const void* codes, int W,
+                                   const void* lanes, const void* start_rows,
+                                   const void* ptrs, const void* max_lens,
+                                   long long n, int trace_cap, void* trace,
+                                   void* res, void* stream) {
+  if (n > 0) {
+    const int threads = 256;
+    const long long blocks = (n + threads - 1) / threads;
+    row_walks_trace_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const unsigned*>(lfc), n_rows,
+        static_cast<const int*>(codes), W, static_cast<const int*>(lanes),
+        static_cast<const int*>(start_rows), static_cast<const int*>(ptrs),
+        static_cast<const int*>(max_lens), n, trace_cap,
+        static_cast<int*>(trace), static_cast<int*>(res));
   }
   return static_cast<int>(cudaGetLastError());
 }

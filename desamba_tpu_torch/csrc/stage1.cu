@@ -25,48 +25,17 @@
 // run length ending at each point; one thread per window picks the
 // longest run, the earliest on ties, by the plain version's encoding
 // runlen * 2w + (w - 1 - position in window); the chunk hit counts add up
-// to n_exist.
+// to n_exist. The e-kmer, its filter and the bloom test are bloom.cuh's,
+// which the validation engine's probe (probe.cu) shares.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "bloom.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kPrefixMask = 0x3FFFFFFu;  // 13 bases (idx.h:59)
-
-// lib/utils.c:1067-1077
-__device__ __forceinline__ uint64_t hash64_1(uint64_t k) {
-  k = ~k + (k << 21);
-  k = k ^ (k >> 24);
-  k = (k + (k << 3)) + (k << 8);
-  k = k ^ (k >> 14);
-  k = (k + (k << 2)) + (k << 4);
-  k = k ^ (k >> 28);
-  k = k + (k << 31);
-  return k;
-}
-
-// lib/utils.c:1080-1091
-__device__ __forceinline__ uint64_t hash64_2(uint64_t k) {
-  k += ~(k << 32);
-  k ^= k >> 22;
-  k += ~(k << 13);
-  k ^= k >> 8;
-  k += k << 3;
-  k ^= k >> 15;
-  k += ~(k << 27);
-  k ^= k >> 31;
-  return k;
-}
-
-// Bit h of a bitmap: byte h >> 3, bit 7 - (h & 7) of it (idx.c:1019),
-// the bytes held as little-endian 32-bit words.
-__device__ __forceinline__ unsigned bloom_bit(const unsigned* __restrict__ w,
-                                              uint64_t h) {
-  const unsigned word = __ldg(w + (h >> 5));
-  return (word >> static_cast<unsigned>(((h >> 3) & 3) * 8 + 7 - (h & 7))) &
-         1u;
-}
 
 __global__ void __launch_bounds__(kThreads) stage1_kernel(
     const unsigned* __restrict__ w01, long long n_words0,
@@ -99,23 +68,12 @@ __global__ void __launch_bounds__(kThreads) stage1_kernel(
   const int p0 = stride - 1;
   for (int g = threadIdx.x; g < n_g; g += blockDim.x) {
     const int p = p0 + stride * g;
-    uint64_t k = 0;
-    unsigned prefix = 0;
-    unsigned counts = 0;  // one byte per base: counts in [p, p + lek)
-    for (int j = 0; j < lek; ++j) {
-      const unsigned c = s_codes[p + j];
-      k = (k << 2) | c;
-      if (j >= lek - 13) prefix = (prefix << 2) | c;
-      if (c < 4 && p + j < len) counts += 1u << (8 * c);
-    }
-    bool fail = false;
-    for (int b = 0; b < 4; ++b)
-      fail |= static_cast<int>((counts >> (8 * b)) & 0xFFu) >= sbm;
+    uint64_t k;
+    unsigned prefix;
+    const bool pass = dsb::ekmer(s_codes, p, len, lek, sbm, &k, &prefix);
     unsigned h = 0;
-    if (!fail && k != 0 && p + lek <= len) {
-      h = bloom_bit(w01, hash64_1(k) & hmask) &
-          bloom_bit(w1, hash64_2(k) & hmask);
-    }
+    if (pass && k != 0 && p + lek <= len)
+      h = dsb::bloom_hit(w01, w1, k, hmask);
     hit[g] = static_cast<unsigned char>(h);
     lo26[row * n_g + g] = static_cast<int>(prefix & kPrefixMask);
   }

@@ -1,7 +1,8 @@
 """Build, load and count the hand-written CUDA kernels in csrc/.
 
 Each csrc/*.cu file has a plain C entry point and is compiled by nvcc for
-sm_90a into its own shared library, loaded with ctypes. The libraries go
+sm_90a into its own shared library, loaded with ctypes; csrc/*.cuh holds
+device code that several sources include. The libraries go
 under build/kernels/ at the repository root (or $DESAMBA_TORCH_BUILD_DIR),
 named by a hash of the source and the flags, and are built at first use:
 all missing ones at once, one nvcc process per source, in parallel. A
@@ -61,6 +62,13 @@ KERNELS = {
     "combine": (
         "rescore.cu", "dsb_combine",
         [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P]),
+    # the validation engine's (engine/tpu_engine.py)
+    "probe_reads": (
+        "probe.cu", "dsb_probe_reads",
+        [_P, _LL, _P, _P, _LL, _I, _I, _I, _I, _P, _P]),
+    "row_walks_trace": (
+        "row_walks.cu", "dsb_row_walks_trace",
+        [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _I, _P, _P, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -88,9 +96,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> str:
+    """The library's path, named by a hash of the source, the headers of
+    csrc/ (which any source may include) and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        h.update(f.read())
+    for name in [src] + sorted(f for f in os.listdir(_CSRC)
+                               if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")

@@ -5,13 +5,15 @@ Counterpart of desamba_tpu/ops/ekmer.py. Both bitmaps live in one int32
 tensor holding the uint32 words (w1's words after w0's), so the two probes
 of a k-mer are one gather. `_probe_reads` and `kmer_lo26` are the plain
 torch versions of two thirds of the stage-1 kernel (ops/seeds.stage1,
-csrc/stage1.cu).
+csrc/stage1.cu); `_probe_reads` at stride 1 is the plain version of the
+validation engine's probe of every e-kmer (`probe_reads`, csrc/probe.cu).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import kernels
 from . import u64emu as u64
 from .fm import _popcount_np
 
@@ -155,3 +157,41 @@ def kmer_lo26(codes, lek: int, stride: int = 1):
     for j in range(lek - 13, lek):
         lo = (lo << 2) | _sub(c, p0 + j, stride, n_g)
     return (lo & 0x3FFFFFF).to(torch.int32)
+
+
+def probe_reads_plain(ek: EkArrays, codes, lengths) -> torch.Tensor:
+    """Plain torch version of the probe_reads kernel: _probe_reads at
+    stride 1."""
+    return _probe_reads(ek.w01, codes, lengths, ek.lek, ek.single_base_max,
+                        ek.mask_bits, stride=1, n_words0=ek.n_words0)
+
+
+def probe_reads(ek: EkArrays, codes, lengths) -> torch.Tensor:
+    """uint8[B, W - lek + 1]: the exist-filter hit of the e-kmer at every
+    offset of every row (stride 1), as JAX's probe_reads. codes:
+    uint8[B, W] (codes 0-3, W >= lek), lengths int32[B], on the bitmaps'
+    device. On CUDA tensors the hand kernel runs; on the CPU, its plain
+    version."""
+    dev = ek.w01.device
+    kernels.check("w01", ek.w01, torch.int32, device=dev)
+    if ek.w01.dim() != 1 or ek.w01.numel() < ek.n_words0 + (
+            1 << max(0, ek.mask_bits - 5)):
+        raise ValueError(f"probe_reads: w01 has {ek.w01.numel()} words, "
+                         f"needs {ek.n_words0} + 2^{ek.mask_bits - 5}")
+    if codes.dim() != 2 or codes.shape[1] < ek.lek:
+        raise ValueError(f"probe_reads: codes of shape "
+                         f"{tuple(codes.shape)}, need [B, >= {ek.lek}]")
+    B, W = codes.shape
+    kernels.check("codes", codes, torch.uint8, device=dev)
+    kernels.check("lengths", lengths, torch.int32, (B,), dev)
+    if not kernels.launch_device(codes):
+        return probe_reads_plain(ek, codes, lengths)
+    out = torch.empty((B, W - ek.lek + 1), dtype=torch.uint8, device=dev)
+    if B:
+        with torch.cuda.device(dev):
+            kernels.call("probe_reads", kernels.ptr(ek.w01), ek.n_words0,
+                         kernels.ptr(codes), kernels.ptr(lengths), B, W,
+                         ek.lek, ek.single_base_max, ek.mask_bits,
+                         kernels.ptr(out), kernels.stream(dev))
+        kernels.launches["probe_reads"] += 1
+    return out

@@ -2,8 +2,10 @@
 
 Counterpart of desamba_tpu/ops/fm.py. `interval_search` and `row_walks`
 each have a hand-written CUDA kernel (csrc/fm_search.cu, csrc/row_walks.cu)
-and a plain torch version. The wrapper runs the plain version for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+and a plain torch version; so does `row_walks` with its row trace
+(`row_walks_trace`, the validation engine's form). The wrapper runs the
+plain version for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises.
 
 The carries are packed int32 tensors: [8, n] for the interval search
 (sp, ep, nsp, nep, match_len, ptr, done, status) and [5, n] for the row
@@ -257,9 +259,11 @@ def rw_init(start_rows, ptrs) -> torch.Tensor:
 
 
 def row_walks_plain(fm: FmArrays, codes, lanes, max_lens, state,
-                    trace_cap: int, sel=None) -> torch.Tensor:
+                    trace_cap: int, sel=None, trace=None) -> torch.Tensor:
     """Plain torch version of the K2 kernel: the JAX no-trace loop; with
-    sel, on the listed slots only (gather, loop, scatter)."""
+    sel, on the listed slots only (gather, loop, scatter). With trace
+    (int32 [n, trace_cap] of -1, and no sel), the row each lane reached
+    at each step it took is written into it, JAX's with_trace=True."""
     if sel is not None:
         return _resume(
             lambda *a: row_walks_plain(fm, codes, *a, trace_cap),
@@ -277,6 +281,8 @@ def row_walks_plain(fm: FmArrays, codes, lanes, max_lens, state,
         match = (c == want) & (cnt < max_lens) & ~is_bad
         act = ~done
         go = act & match
+        if trace is not None:
+            trace[:, it] = torch.where(go, nxt, -1)
         bad = bad | (act & is_bad & (cnt < max_lens))
         sp = torch.where(go, nxt, sp)
         ptr = torch.where(go, ptr - 1, ptr)
@@ -314,3 +320,62 @@ def row_walks_state(fm: FmArrays, codes, lanes, max_lens, state,
                      kernels.stream(dev))
     kernels.launches["row_walks"] += 1
     return out
+
+
+# ------------------------------------------------------- traced walks --
+# rows of the traced walks' int32 [6, n] result, beside the trace
+TRACE_KEYS = ("final_sp", "final_ptr", "steps", "bad_char", "overflow",
+              "stop_max")
+
+
+def row_walks_trace_plain(fm: FmArrays, codes, lanes, start_rows, ptrs,
+                          max_lens, trace_cap: int = 96) -> dict:
+    """Plain torch version of the traced-walk kernel: JAX's row_walks with
+    with_trace=True, through row_walks_plain. Lanes that stopped take no
+    more steps, so the loop ends once every lane has stopped and the rest
+    of the trace is -1."""
+    trace = torch.full((start_rows.shape[0], trace_cap), -1,
+                       dtype=torch.int32, device=start_rows.device)
+    sp, ptr, cnt, done, bad = row_walks_plain(
+        fm, codes, lanes, max_lens, rw_init(start_rows, ptrs), trace_cap,
+        trace=trace)
+    res = torch.stack([sp, ptr, cnt, bad, 1 - done,
+                       (cnt >= max_lens).to(torch.int32)])
+    return dict(trace=trace, **dict(zip(TRACE_KEYS, res)))
+
+
+def row_walks_trace(fm: FmArrays, codes, lanes, start_rows, ptrs, max_lens,
+                    trace_cap: int = 96) -> dict:
+    """Walk each lane from BWT row start_rows[i], matching codes[lanes[i],
+    ptr] with ptr from ptrs[i] down, for at most max_lens[i] steps and
+    trace_cap lockstep rounds (bwt_single_search without the sp_set
+    dedup, which the host replays from the trace). codes: int32[B, W]
+    (a ptr outside [0, W) matches nothing); lanes, start_rows, ptrs,
+    max_lens: int32[n]. Returns a dict of int32 tensors: trace [n,
+    trace_cap] (the row reached at each step taken, else -1) and the
+    TRACE_KEYS rows, each [n]."""
+    n = start_rows.shape[0]
+    dev = start_rows.device
+    kernels.check("lfc", fm.lfc, torch.int32, device=dev)
+    if codes.dim() != 2 or trace_cap < 0:
+        raise ValueError(f"row_walks_trace: codes of shape "
+                         f"{tuple(codes.shape)}, trace_cap {trace_cap}")
+    kernels.check("codes", codes, torch.int32, device=dev)
+    for name, t in (("lanes", lanes), ("start_rows", start_rows),
+                    ("ptrs", ptrs), ("max_lens", max_lens)):
+        kernels.check(name, t, torch.int32, (n,), dev)
+    if not kernels.launch_device(start_rows):
+        return row_walks_trace_plain(fm, codes, lanes, start_rows, ptrs,
+                                     max_lens, trace_cap)
+    trace = torch.empty((n, trace_cap), dtype=torch.int32, device=dev)
+    res = torch.empty((len(TRACE_KEYS), n), dtype=torch.int32, device=dev)
+    if n:
+        with torch.cuda.device(dev):
+            kernels.call("row_walks_trace", kernels.ptr(fm.lfc),
+                         fm.lfc.shape[0], kernels.ptr(codes), codes.shape[1],
+                         kernels.ptr(lanes), kernels.ptr(start_rows),
+                         kernels.ptr(ptrs), kernels.ptr(max_lens), n,
+                         int(trace_cap), kernels.ptr(trace), kernels.ptr(res),
+                         kernels.stream(dev))
+        kernels.launches["row_walks_trace"] += 1
+    return dict(trace=trace, **dict(zip(TRACE_KEYS, res)))

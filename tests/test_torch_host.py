@@ -34,7 +34,14 @@ REF_CONSTANTS = [
     "EK_SIZE_LADDER", "STEP_EK", "SEED_RANGE", "S_A_KMER_L",
     "FILTER_MIN_SCORE_2G", "FILTER_MIN_SCORE_SHORT_3G", "NGS_MAX_READ_L",
     "SHORT_3G_READ_L", "DEFAULT_FILTER_MIN_LENGTH", "DEFAULT_MIN_SCORE",
-    "P_E", "Q_MEM_MAX", "MAX_LV_WRONG", "MAX_LV_R_LEN", "N_NEEDED"]
+    "P_E", "Q_MEM_MAX", "MAX_LV_WRONG", "MAX_LV_R_LEN", "N_NEEDED",
+    # the validation engine's and its oracle's
+    "PRE_IDX_MASK", "MIN_UNI_L", "MIN_READ_LEN", "MEM_SEARCH_FAST",
+    "MIN_MEM_LEN_FAST", "MEM_SEARCH_SLOW", "MIN_MEM_LEN_SLOW", "LV_ERROR",
+    "LV_L", "MIN_S_1", "MIN_S_2", "SP_SET_CAP", "MAX_DIS_MINUS",
+    "MAX_WAITING_LEN", "MAX_ANCHOR_OVERLAP", "CHAIN_M3_THRESHOLD",
+    "MIN_SCORE_MEM", "OVER_SEARCH_M2", "MAX_SMS_OVERLAP",
+    "DEFAULT_MAX_SEC_N", "PRIMARY", "SECONDARY", "SUPPLEMENTARY"]
 ENGINE_CONSTANTS = [
     "ROWS_PER_SEARCH", "FM_EXT_CAP", "REFPOS_PER_ANCHOR", "VOTE_TILE",
     "IV_BURST", "IV_MID", "WALK_BURST", "WALK_MID", "WALK_TAIL", "PACK_KEYS",

@@ -595,6 +595,159 @@ def check_stage4_coverage(ra, packed, lens, ref_c, diag_c, groups, K):
         assert (s_max[i] % 2 == odd).all() and (fwd[i] == on_fwd).all(), name
 
 
+# ------------------------------------------------ validation engine --
+def probe_cases(lek, W, seed=6):
+    """probe_reads inputs at width W: (codes uint8[B, W], lengths
+    int32[B], groups {case: row indices}). The cases:
+    - "golden": golden reads of both strands cut to W (they hit the
+      filter);
+    - "padding": rows of length 0 over random codes;
+    - "short": reads shorter than lek + 1 (lengths 1, lek - 1 and lek);
+    - "run": a read whose first half is one base (the base-count filter);
+    - "zero": a read of code 0 (the zero k-mer);
+    - "random": random codes and lengths; "full": random codes at
+      length W."""
+    from desamba_tpu_torch.io.fastx import read_fastx
+    from desamba_tpu_torch.utils.codec import seq_to_codes
+
+    rng = np.random.default_rng(seed)
+    root = os.path.dirname(os.path.abspath(__file__))
+    rows, groups = [], {}
+
+    def add(name, c, length):
+        groups.setdefault(name, []).append(len(rows))
+        row = rng.integers(0, 4, W).astype(np.uint8)
+        row[length:] = 0  # the engine's padding past a read
+        row[: min(len(c), W)] = c[:W]
+        rows.append((row, length))
+
+    for r in list(read_fastx(os.path.join(root, "golden", "reads.fq")))[:6]:
+        f = seq_to_codes(r.seq)
+        add("golden", f, min(f.size, W))
+        add("golden", (3 - f[::-1]).astype(np.uint8), min(f.size, W))
+    add("padding", rng.integers(0, 4, W).astype(np.uint8), 0)
+    for n in (1, lek - 1, lek):
+        add("short", rng.integers(0, 4, n).astype(np.uint8), n)
+    run = rng.integers(0, 4, W).astype(np.uint8)
+    run[: W // 2] = 2
+    add("run", run, W)
+    add("zero", np.zeros(W, np.uint8), W)
+    for _ in range(4):
+        add("random", rng.integers(0, 4, W).astype(np.uint8),
+            int(rng.integers(0, W + 1)))
+    add("full", rng.integers(0, 4, W).astype(np.uint8), W)
+    return (np.stack([r for r, _ in rows]),
+            np.array([n for _, n in rows], np.int32),
+            {k: np.array(v) for k, v in groups.items()})
+
+
+def check_probe_coverage(ek, codes, lengths, ex, groups):
+    """The cases of probe_cases reach what they are meant to: golden hits,
+    nothing past a read's end, and the base-count filter and the zero
+    k-mer rejecting points that lie in a read."""
+    from desamba_tpu_torch.ops.ekmer import _probe_addrs
+
+    lek = ek.lek
+    n_k = codes.shape[1] - lek + 1
+    assert ex[groups["golden"]].any()
+    past = np.arange(n_k)[None, :] + lek > lengths[:, None]
+    assert past.any() and not ex[past].any()
+    assert not ex[groups["padding"]].any()
+    want = _probe_addrs(torch.from_numpy(codes), torch.from_numpy(lengths),
+                        lek, ek.single_base_max, ek.mask_bits)[0].numpy()
+    run = groups["run"][0]
+    n_run = codes.shape[1] // 2 - lek + 1
+    assert n_run > 0 and not want[run, :n_run].any()
+    assert not want[groups["zero"]].any()
+
+
+def walk_trace_cases(fm, seed=13, cap=96):
+    """Traced row-walk inputs on the index of fm: (codes int32[B, W],
+    lanes, start_rows, ptrs, max_lens int32[n], groups {case: lanes}).
+    Read row 0 spells, right to left, the chars of a 140-step LF chain
+    of ACGT from row r0 (so a walk from r0 matches it all the way);
+    row 1 is the same with its char 96 steps in changed; past each read
+    the codes are 255, as the engine pads them. The cases:
+    - "overflow": from r0 with max_len 200, still walking after cap steps;
+    - "max_at_cap": max_len cap, which it reaches at the last step;
+    - "stop_at_cap": max_len cap - 1, so it stops at step cap;
+    - "mismatch_at_cap": on row 1, a mismatch at step cap;
+    - "max_len": max_len 5;
+    - "bad_char": start rows at pad nibbles (rows past L, and -1, which
+      JAX's gather clamps to the last row);
+    - "ptr_out": ptr -1 (the engine's padding walks) and ptr W + 3;
+    - "random": random rows, ptrs and max_lens on both read rows."""
+    rng = np.random.default_rng(seed)
+    lfc = fm.lfc.numpy().astype(np.int64) & 0xFFFFFFFF
+    n_chain = cap + 44
+    cand = rng.permutation(fm.L)[:4000]
+    r, chars, ok = cand.copy(), [], np.ones(cand.size, bool)
+    for _ in range(n_chain):
+        w = lfc[r]
+        chars.append(w >> 29)
+        ok &= (w >> 29) < 4
+        r = w & ((1 << 29) - 1)
+    assert ok.any(), "no ACGT chain of the length the cases need"
+    k = int(np.argmax(ok))
+    r0 = int(cand[k])
+    chain = np.array([c[k] for c in chars], np.int32)
+    W = n_chain + 16
+    codes = np.full((2, W), 255, np.int32)
+    codes[0, :n_chain] = chain[::-1]
+    codes[1] = codes[0]
+    codes[1, n_chain - 1 - (cap - 1)] ^= 1  # the char of step cap
+    lanes, rows, ptrs, mlen, groups = [], [], [], [], {}
+
+    def add(name, lane, row, ptr, max_len):
+        groups.setdefault(name, []).append(len(lanes))
+        lanes.append(lane)
+        rows.append(row)
+        ptrs.append(ptr)
+        mlen.append(max_len)
+
+    top = n_chain - 1
+    add("overflow", 0, r0, top, 200)
+    add("max_at_cap", 0, r0, top, cap)
+    add("stop_at_cap", 0, r0, top, cap - 1)
+    add("mismatch_at_cap", 1, r0, top, 200)
+    add("max_len", 0, r0, top, 5)
+    assert lfc.size > fm.L, "the index has no pad rows"
+    for row in (fm.L, lfc.size - 1, -1):
+        add("bad_char", 0, row, top, 10)
+    add("ptr_out", 0, r0, -1, 200)
+    add("ptr_out", 1, r0, W + 3, 200)
+    for _ in range(40):
+        add("random", int(rng.integers(2)), int(rng.integers(fm.L)),
+            int(rng.integers(-2, W)), int(rng.integers(0, 130)))
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return (i32(codes), i32(lanes), i32(rows), i32(ptrs), i32(mlen),
+            {k: np.array(v) for k, v in groups.items()})
+
+
+def check_walk_trace_coverage(out, groups, cap=96):
+    """The cases of walk_trace_cases reach what they are meant to."""
+    o = {k: v.numpy() for k, v in out.items()}
+
+    def at(case, **want):
+        i = groups[case]
+        for k, v in want.items():
+            assert (o[k][i] == v).all(), (case, k, o[k][i])
+
+    at("overflow", steps=cap, overflow=1, stop_max=0)
+    at("max_at_cap", steps=cap, overflow=1, stop_max=1)
+    at("stop_at_cap", steps=cap - 1, overflow=0, stop_max=1)
+    at("mismatch_at_cap", steps=cap - 1, overflow=0, stop_max=0)
+    at("max_len", steps=5, overflow=0, stop_max=1)
+    at("bad_char", steps=0, bad_char=1, overflow=0)
+    at("ptr_out", steps=0, overflow=0, bad_char=0)
+    tr = o["trace"]
+    assert (tr[groups["overflow"]] >= 0).all()
+    assert (tr[groups["stop_at_cap"], : cap - 1] >= 0).all()
+    assert (tr[groups["stop_at_cap"], cap - 1] == -1).all()
+    assert (tr[groups["ptr_out"]] == -1).all()
+    assert o["steps"][groups["random"]].max() > 0
+
+
 # --------------------------------------------------------- on the card --
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,W,steps", [(1, 256, 4096), (1000, 300, 2),
@@ -1094,6 +1247,111 @@ def test_compact_entry_points_refuse_short_scratch(cuda):
     assert kernels.launches == before
 
 
+@pytest.fixture(scope="module")
+def ek_unfolded(golden_index_dir):
+    """The golden index's exist filter unfolded, as the validation engine
+    probes it."""
+    from desamba_tpu_torch.index.loader import load_index
+    from desamba_tpu_torch.ops.ekmer import EkArrays
+
+    return EkArrays.from_tensor_index(load_index(golden_index_dir), "cpu")
+
+
+def _ek_to(ek, dev):
+    from desamba_tpu_torch.ops.ekmer import EkArrays
+
+    return EkArrays(ek.w01.to(dev), ek.n_words0, ek.mask_bits, ek.lek,
+                    ek.single_base_max, ek.fold_bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [64, 256, 4096])
+def test_probe_reads_kernel(cuda, ek_unfolded, W):
+    """probe_cases on the golden index's unfolded filter, then on a random
+    filter at three-quarter load (many hits)."""
+    from desamba_tpu_torch.ops.ekmer import (EkArrays, probe_reads,
+                                             probe_reads_plain)
+
+    codes, lens, groups = probe_cases(ek_unfolded.lek, W)
+    args = (torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda))
+    rng = np.random.default_rng(W)
+    words = rng.integers(0, 2 ** 32, 2 << 15, dtype=np.uint64).astype(
+        np.uint32) | rng.integers(0, 2 ** 32, 2 << 15, dtype=np.uint64
+                                  ).astype(np.uint32)
+    dense = EkArrays(torch.from_numpy(words.view(np.int32)).to(cuda), 1 << 15,
+                     20, ek_unfolded.lek, ek_unfolded.single_base_max)
+    before = kernels.launches["probe_reads"]
+    outs = []
+    for ek in (_ek_to(ek_unfolded, cuda), dense):
+        got = probe_reads(ek, *args)
+        ref = probe_reads_plain(ek, *args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint8 and torch.equal(got, ref)
+        outs.append(got.cpu().numpy())
+    check_probe_coverage(ek_unfolded, codes, lens, outs[0], groups)
+    assert int(outs[1].sum()) > codes.shape[0]
+    assert kernels.launches["probe_reads"] == before + 2
+
+
+@pytest.mark.cuda
+def test_row_walks_trace_kernel(cuda, tables):
+    """walk_trace_cases, each case asserted reached, then a random batch
+    resumed from the interval search on random reads."""
+    from desamba_tpu_torch.ops.fm import (TRACE_KEYS, interval_search_state,
+                                          iv_init, row_walks_trace,
+                                          row_walks_trace_plain)
+
+    fm = _to(tables, cuda)
+    codes, lanes, rows, ptrs, mlen, groups = walk_trace_cases(tables[0])
+    args = [t.to(cuda) for t in (codes, lanes, rows, ptrs, mlen)]
+    before = kernels.launches["row_walks_trace"]
+    got = row_walks_trace(fm, *args)
+    ref = row_walks_trace_plain(fm, *args)
+    torch.cuda.synchronize()
+    assert set(got) == set(ref) == {"trace", *TRACE_KEYS}
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    check_walk_trace_coverage({k: v.cpu() for k, v in got.items()}, groups)
+    d = {k: v.to(cuda) for k, v in _search_inputs(fm, 3000, 2048, 5).items()}
+    st = interval_search_state(fm, d["codes"], d["lane"], d["max_rst"],
+                               d["l_min"], d["l_max"],
+                               iv_init(d["sp0"], d["ep0"], d["s_idx"]), 28)
+    walk = (d["codes"], d["lane"], st[2], st[5],
+            torch.clamp(d["s_idx"] - st[4], min=0).to(torch.int32))
+    for cap in (96, 7):
+        got = row_walks_trace(fm, *walk, cap)
+        ref = row_walks_trace_plain(fm, *walk, cap)
+        torch.cuda.synchronize()
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (cap, k)
+    assert kernels.launches["row_walks_trace"] == before + 3
+
+
+@pytest.mark.cuda
+def test_validation_wrappers_reject_bad_inputs(cuda, tables, ek_unfolded):
+    """probe_reads and row_walks_trace refuse inputs of another dtype,
+    shape or device on the card, as on the CPU."""
+    from desamba_tpu_torch.ops.ekmer import probe_reads
+    from desamba_tpu_torch.ops.fm import row_walks_trace
+
+    ek = _ek_to(ek_unfolded, cuda)
+    codes = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    lens = torch.full((4,), 64, dtype=torch.int32, device=cuda)
+    for c, n in ((codes.int(), lens), (codes, lens.long()),
+                 (codes.cpu(), lens), (codes[:, ::2], lens),
+                 (codes[:, :10], lens), (codes, lens[:3])):
+        with pytest.raises(ValueError):
+            probe_reads(ek, c, n)
+    fm = _to(tables, cuda)
+    c2 = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    z = torch.zeros(5, dtype=torch.int32, device=cuda)
+    for a in ((c2.long(), z, z, z, z), (c2, z[:4], z, z, z),
+              (c2, z, z.cpu(), z, z), (c2, z, z, z.long(), z),
+              (c2[0], z, z, z, z)):
+        with pytest.raises(ValueError):
+            row_walks_trace(fm, *a)
+
+
 # ------------------------------------------------------------ any host --
 def test_stage1_cpu_route_and_input_checks(tables):
     """On the CPU the wrapper runs stage1_plain and counts nothing; bad
@@ -1308,6 +1566,58 @@ def test_resume_cpu_route_and_input_checks(tables):
             interval_search_state(*args, st, 5, sel=bad)
         with pytest.raises(ValueError):
             row_walks_state(fm, d["codes"], d["lane"], mlen, wst, 5, sel=bad)
+
+
+def test_probe_reads_cpu_route_and_input_checks(ek_unfolded):
+    """On the CPU the probe_reads wrapper runs probe_reads_plain and counts
+    nothing; the cases reach what they are meant to; bad inputs raise on
+    any device."""
+    from desamba_tpu_torch.ops.ekmer import probe_reads, probe_reads_plain
+
+    codes, lens, groups = probe_cases(ek_unfolded.lek, 128)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lens)
+    before = dict(kernels.launches)
+    got = probe_reads(ek_unfolded, c, n)
+    assert got.dtype == torch.uint8 and got.shape == (
+        codes.shape[0], 128 - ek_unfolded.lek + 1)
+    assert torch.equal(got, probe_reads_plain(ek_unfolded, c, n))
+    assert kernels.launches == before
+    check_probe_coverage(ek_unfolded, codes, lens, got.numpy(), groups)
+    for bad_c, bad_n in ((c.int(), n), (c, n.long()), (c[:, ::2], n),
+                         (c[:, : ek_unfolded.lek - 1], n), (c[0], n),
+                         (c, n[:-1])):
+        with pytest.raises(ValueError):
+            probe_reads(ek_unfolded, bad_c, bad_n)
+
+
+def test_row_walks_trace_cpu_route_and_input_checks(tables):
+    """On the CPU the row_walks_trace wrapper runs row_walks_trace_plain
+    and counts nothing; the cases reach what they are meant to; bad inputs
+    raise on any device."""
+    from desamba_tpu_torch.ops.fm import (TRACE_KEYS, row_walks_trace,
+                                          row_walks_trace_plain)
+
+    fm = tables[0]
+    codes, lanes, rows, ptrs, mlen, groups = walk_trace_cases(fm)
+    args = [codes, lanes, rows, ptrs, mlen]
+    before = dict(kernels.launches)
+    got = row_walks_trace(fm, *args)
+    ref = row_walks_trace_plain(fm, *args)
+    assert kernels.launches == before
+    assert set(got) == {"trace", *TRACE_KEYS}
+    for k in got:
+        assert got[k].dtype == torch.int32 and torch.equal(got[k], ref[k]), k
+    assert got["trace"].shape == (rows.numel(), 96)
+    check_walk_trace_coverage(got, groups)
+    bad = [(0, codes.long()), (0, codes[0]), (1, lanes[:-1]),
+           (2, rows.long()), (3, ptrs[::2]), (4, mlen[:-1])]
+    for i, v in bad:
+        a = list(args)
+        a[i] = v
+        with pytest.raises(ValueError):
+            row_walks_trace(fm, *a)
+    with pytest.raises(ValueError):
+        row_walks_trace(fm, *args, -1)
 
 
 def test_numpy_hashes_equal_the_u64_emulation():
