@@ -27,7 +27,11 @@ Phases (any failure raises, and the script exits nonzero):
      CUDA events (median of 20, L2 flushed before each call, as the path
      finds the tables cold), beside the least time the card could take
      for the same work and, for compact, torch.nonzero on the same mask;
-     then one warm classify_batch
+     the vote (K7) also on the first BLOCK bench reads encoded at W = 4096
+     and 8192 (the buckets of 3-8 kb reads and of long-read segments), and
+     on tests/test_torch_kernels.vote_cases (on the golden index, built
+     by a child process) at every width bucket up to 8192; then one warm
+     classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
      kernel must have launched (those of stages 0, 1, 3 and 4 and
@@ -42,27 +46,29 @@ Phases (any failure raises, and the script exits nonzero):
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
      torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
-     and, for stage 1, the kernel's bound; every stage's and the fused
+     and, for stage 1, the kernel's bound, for the vote its kernel's time
+     (L2 evicted) beside its bound; every stage's and the fused
      chunk's device time, span and launches per chunk (stage 2 at most
-     STAGE2_MAX_LAUNCHES); then one
+     STAGE2_MAX_LAUNCHES, stage 3 at most STAGE3_MAX_LAUNCHES); then one
      pure-device classify_batch unprofiled and one under torch.profiler:
      device busy share = kernel time over the unprofiled wall, and each
      hand kernel's device time per launch as the path runs it
   6. the bit-exact validation engine (TpuClassifier, `classify --engine
-     tpu`): on the golden index (built from tests/golden/ref.fa by a
-     child process) its SAM must equal tests/golden/classify.sam byte for
-     byte; then the first N_VALIDATE bench reads, with the fast
-     classifier's FM tables shared, through the kernels (launch counts set
-     to 0 just before, read just after; each of the path's three kernels
-     must launch; each device call timed from launch to sync, the rest
-     host work) and through the plain versions: the two SAMs must be
+     tpu`): on the golden index its SAM must equal
+     tests/golden/classify.sam byte for byte; then the first N_VALIDATE
+     bench reads, with the fast classifier's FM tables shared, through
+     the kernels (launch counts set to 0 just before, read just after;
+     each of the path's three kernels must launch; each device call timed
+     from launch to sync, the rest host work) and through the plain
+     versions: the two SAMs must be
      equal; reads/s of both, the engine's stats, the primary hit's
      agreement with the native engine on (ref, direction, score, pos),
      and each of the path's kernels (probe_reads, K1, row_walks_trace)
      held against its plain version on its first call, timed with L2
      evicted, beside its bound
-Prints a `kernels` JSON line (the fast path's ten kernels, then the
-validation engine's two; K1's row also carries its validation-path call),
+Prints a `kernels` JSON line (the fast path's eleven kernels, then the
+validation engine's two; K1's row also carries its validation-path call,
+the vote's its checks at the other widths and on vote_cases),
 then {"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
@@ -89,9 +95,12 @@ INT32_OPS_PER_S = 67e12 / 4
 SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
 STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
+STAGE3_MAX_LAUNCHES = 6   # and of stage 3 (locate, then the vote)
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 GOLDEN_IDX = os.path.join(ROOT, "build", "golden_idx")
 N_VALIDATE = 768      # bench reads through the validation engine (phase 6)
+VOTE_WIDTHS = (4096, 8192)  # the vote's bench-read checks besides W = 2048
+VOTE_CASE_ROWS = 101  # read rows of each vote_cases check
 # the CUDA functions each fast-path kernel's wrapper launches (its
 # profiler rows), once each a call
 GLOBAL = {
@@ -102,6 +111,7 @@ GLOBAL = {
     "row_grid": ("row_grid_scatter_kernel", "row_grid_count_kernel"),
     "row_walks": ("row_walks_kernel",),
     "locate": ("locate_kernel",),
+    "vote": ("vote_kernel", "vote_fill_kernel", "vote_scatter_kernel"),
     "band_windows": ("band_windows_kernel",),
     "band_score_packed": ("band_score_kernel",),
     "combine": ("combine_kernel",),
@@ -118,6 +128,7 @@ REPLACES = {
     "row_grid": "desamba_tpu/engine/fast_engine.py:288",
     "row_walks": "desamba_tpu/ops/fm.py:261",
     "locate": "desamba_tpu/ops/locate.py:59",
+    "vote": "desamba_tpu/engine/fast_engine.py:363",
     "band_windows": "desamba_tpu/engine/fast_engine.py:420",
     "band_score_packed": "desamba_tpu/ops/matchblock.py:201",
     "combine": "desamba_tpu/engine/fast_engine.py:452",
@@ -247,9 +258,9 @@ def first_chunks(cl, reads) -> dict:
 
 def stage_calls(cl, packed, lens, ops):
     """Run stages 0-4 once on an encoded chunk. Returns ({stage: fn},
-    (stage 1's kernel arguments, its output), (stage 2's output, nwR)):
-    each fn calls one stage on the saved output of the stage before it,
-    "fused" the whole pipeline."""
+    (stage 1's kernel arguments, its output)): each fn calls one stage on
+    the saved output of the stage before it, "fused" the whole
+    pipeline."""
     import torch
 
     from desamba_tpu_torch.constants import ROWS_PER_SEARCH, _band
@@ -279,7 +290,7 @@ def stage_calls(cl, packed, lens, ops):
     }
     s1_io = ((ek.w01, codes2, l2, ek.lek, ek.single_base_max, ek.mask_bits,
               ek.n_words0), o1)
-    return fns, s1_io, (o2, nwR)
+    return fns, s1_io
 
 
 def kernel_inputs(cl, packed, lens) -> dict:
@@ -378,6 +389,8 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
                 10 * S * R + 20 * cap)
     if name == "locate":
         return locate_work(*args, out)
+    if name == "vote":
+        return vote_work(*args)
     if name == "unpack":
         # a few operations a code: shift, mask, and the stores
         return nbytes(*args, *out), out[0].numel() * 3
@@ -511,32 +524,24 @@ def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
             20 * steps + 6 * n_probes + rows.numel() * (40 + 10 * P))
 
 
-def vote_work(cl, stage2_out, B2: int, nwR: int,
-              all_pairs: bool = False) -> tuple[int, int]:
-    """(bytes, int32 operations) of K7, stage 3's vote after locate, on a
-    chunk's stage-2 output: each valid anchor against every valid anchor
-    of its read row, the pairs the scores need (an invalid anchor's score
-    is -1, and no valid anchor matches an invalid one's ref), or with
-    all_pairs every pair of the dense [B2, A] rows, at 6 int32
-    operations a pair (compare the refs, subtract the diagonals, abs,
-    compare with tol, and, multiply-add the weight); bytes: locate's
-    outputs and the compacted lanes read once, the dense [B2, A] ref,
-    diagonal and weight arrays written once and the [B2, 3] candidates
-    out."""
+def vote_work(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
+              nwR: int) -> tuple[int, int]:
+    """(bytes, int32 operations) of the vote (K7) on these inputs. Bytes:
+    the lanes in and the three [B2, 3] outputs out, once. Operations: 6 a
+    pair (compare the refs, subtract the diagonals, abs, compare with
+    tol, and, add the weight) over the pairs the scores need, each anchor
+    with a ref against each anchor of nonzero weight of its read row (an
+    anchor without a ref scores -1, and one of weight 0 adds nothing)."""
     import torch
 
-    from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR
-    from desamba_tpu_torch.ops.locate import locate_plain
-
-    fsp, hit, tot, qleft, sel = stage2_out
-    ref, gpos, pvalid = locate_plain(cl.fm, cl.loc, fsp, hit,
-                                     REFPOS_PER_ANCHOR)
-    n_valid = torch.zeros(B2 + 1, dtype=torch.int64, device=sel.device)
-    n_valid.index_add_(0, (sel // nwR).long(), pvalid.sum(1))
-    A = nwR * REFPOS_PER_ANCHOR
-    pairs = B2 * A * A if all_pairs else int((n_valid[:B2] ** 2).sum())
-    return (nbytes(ref, gpos, pvalid, tot, qleft, sel)
-            + 3 * 4 * B2 * A + 3 * 4 * B2 * 3, 6 * pairs)
+    b = (sel // nwR).long().clamp(0, B2)
+    n_i = torch.zeros(B2 + 1, dtype=torch.int64, device=sel.device)
+    n_j = torch.zeros_like(n_i)
+    n_i.index_add_(0, b, (pvalid & (ref >= 0)).sum(1))
+    n_j.index_add_(0, b, (pvalid & (total_c != 0)[:, None]).sum(1))
+    pairs = int((n_i[:B2] * n_j[:B2]).sum())
+    return (nbytes(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2)
+            + 3 * 4 * B2 * 3, 6 * pairs)
 
 
 def bound_of(b: int, ops: int) -> tuple[float, str]:
@@ -567,6 +572,8 @@ def check_kernels(cap: dict) -> dict:
         "row_grid": lambda a: f"S={a[0].shape[1]} cap={a[4]}",
         "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
         "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
+        "vote": lambda a: (f"NC={a[0].shape[0]} B2={a[7]} "
+                           f"A={a[8] * a[0].shape[1]}"),
         "unpack": lambda a: f"Bp={a[0].shape[0]} W={2 * a[0].shape[1]}",
         "band_windows": lambda a: (f"rows={a[3].shape[0]} C={a[3].shape[1]} "
                                    f"W={16 * a[1].shape[1]} K={a[5]}"),
@@ -610,10 +617,68 @@ def check_kernels(cap: dict) -> dict:
     return out
 
 
-def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
+def check_vote(cl, reads, gtabs) -> dict:
+    """The vote kernel against vote_plain beyond the W = 2048 chunk: on
+    the first BLOCK bench reads encoded at each of VOTE_WIDTHS (the
+    kernels' stages 0-2 and locate give its inputs), and on vote_cases
+    (the golden tables gtabs, on the CPU) at every width bucket up to the
+    classifier's max_width. Equal exactly, or the run fails. The bench
+    calls are timed as check_kernels times them."""
+    import torch
+
+    from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR, _bucket
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
+    from desamba_tpu_torch.ops.locate import locate_plain
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_kernels import vote_cases
+
+    kern, plain = KERNEL_OPS["vote"], PLAIN_OPS["vote"]
+    calls = {}
+    for W in VOTE_WIDTHS:
+        packed, lens, _ = cl._encode(reads[:BLOCK], W=W, Bp=BLOCK)
+        calls[f"W={W}"] = kernel_inputs(cl, packed, lens)["vote"][0]
+    fm, _, loc, _ = gtabs
+    lek = cl.ek.lek
+    for W in sorted({_bucket(max(n, lek + 2))
+                     for n in range(1, cl.max_width + 1)}):
+        *s2, l2, nwR, _ = vote_cases(fm, loc, W, lek, VOTE_CASE_ROWS)
+        args = (*locate_plain(fm, loc, s2[0], s2[1], REFPOS_PER_ANCHOR),
+                *s2[2:], l2)
+        calls[f"vote_cases W={W}"] = (*(t.to(cl.device) for t in args),
+                                      VOTE_CASE_ROWS, nwR)
+    out = {}
+    for key, args in calls.items():
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        shape = (f"NC={args[0].shape[0]} B2={args[7]} "
+                 f"A={args[8] * args[0].shape[1]}")
+        if err != 0:
+            raise AssertionError(f"vote ({key}): kernel differs from its "
+                                 f"plain version (max abs err {err}) at "
+                                 f"{shape}")
+        out[key] = dict(max_abs_err=err, shape=shape)
+        if key.startswith("W="):
+            bound_ms, bound_by = bound("vote", args, ref)
+            out[key].update(
+                ms=cuda_ms(lambda: kern(*args), 20, cold=True),
+                plain_ms=cuda_ms(lambda: plain(*args), 5, cold=True),
+                bound_ms=bound_ms, bound_by=bound_by)
+        log(f"smoke: vote ({key}) [{shape}] equal" + (
+            f"; kernel {out[key]['ms']:.4f} ms, plain "
+            f"{out[key]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})" if key.startswith("W=") else ""))
+    return out
+
+
+def where_time_goes(cl, chunks: dict, reads, card: str,
+                    vote_first: dict) -> dict:
     """Per-stage event span and device time on each bucket's first full
-    chunk; device busy share of one pure-device classify_batch, and each
-    hand kernel's device time per launch in it."""
+    chunk, with the vote kernel's cold time and bound (vote_first: phase
+    2's check of it on the first chunk); device busy share of one
+    pure-device classify_batch, and each hand kernel's device time per
+    launch in it."""
     import torch
 
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
@@ -621,19 +686,23 @@ def where_time_goes(cl, chunks: dict, reads, card: str) -> dict:
     stages = {}
     for W, (packed, lens, n_chunk) in chunks.items():
         row = {}
-        fns, s1_io, (o2, nwR) = stage_calls(cl, packed, lens, KERNEL_OPS)
+        fns, s1_io = stage_calls(cl, packed, lens, KERNEL_OPS)
         for name, fn in fns.items():
             dev, nk = device_ms(fn)
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
         row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
-        # K7, still plain torch, has no kernel to time, only its bound:
-        # (ms, "bytes" or "operations")
-        B2 = 2 * packed.shape[0]
-        row["3 locate+vote"].update(
-            vote_bound=bound_of(*vote_work(cl, o2, B2, nwR)),
-            vote_bound_all_pairs=bound_of(*vote_work(cl, o2, B2, nwR,
-                                                     all_pairs=True)))
+        # the vote kernel (L2 evicted) beside its bound (ms, "bytes" or
+        # "operations"): phase 2 timed it on the first chunk
+        if W == min(chunks):
+            vote_ms = vote_first["ms"]
+            vote_bound = (vote_first["bound_ms"], vote_first["bound_by"])
+        else:
+            vargs = kernel_inputs(cl, packed, lens)["vote"][0]
+            vote_ms = cuda_ms(lambda: KERNEL_OPS["vote"](*vargs), 20,
+                              cold=True)
+            vote_bound = bound_of(*vote_work(*vargs))
+        row["3 locate+vote"].update(vote_ms=vote_ms, vote_bound=vote_bound)
         stages[f"W={W} ({n_chunk} reads)"] = row
     cl.exact_fallback = False
     torch.cuda.synchronize()
@@ -699,9 +768,10 @@ def primary_lines(sam: str) -> dict:
     return out
 
 
-def validation_phase(cl, reads, card: str) -> dict:
+def validation_phase(cl, reads, card: str, gidx, build_s: float) -> dict:
     """Phase 6: the validation engine (TpuClassifier, `classify --engine
-    tpu`) on the card. The golden SAM byte for byte; then the first
+    tpu`) on the card. The golden SAM on the golden index gidx (built in
+    build_s seconds) byte for byte; then the first
     N_VALIDATE bench reads through the kernel route (launch counts set to
     0 just before, read just after; its device calls timed for where the
     time goes) and the plain route, whose SAMs must be equal, beside the
@@ -713,17 +783,14 @@ def validation_phase(cl, reads, card: str) -> dict:
     from desamba_tpu_torch.engine.native import NativeClassifier
     from desamba_tpu_torch.engine.tpu_engine import (KERNEL_OPS, PLAIN_OPS,
                                                      SUB_BATCH, TpuClassifier)
-    from desamba_tpu_torch.index.loader import load_index
     from desamba_tpu_torch.io.fastx import read_fastx
     from desamba_tpu_torch.oracle.classify import i32
 
-    t0 = time.time()
-    gidx = load_index(make_golden_index())
     greads = [(r.name, r.seq, r.qual)
               for r in read_fastx(os.path.join(GOLDEN, "reads.fq"))]
     t1 = time.time()
     gsam = TpuClassifier(gidx, device="cuda").classify_to_sam(greads)
-    golden = dict(build_s=t1 - t0, classify_s=time.time() - t1,
+    golden = dict(build_s=build_s, classify_s=time.time() - t1,
                   reads=len(greads))
     if gsam != open(os.path.join(GOLDEN, "classify.sam")).read():
         raise AssertionError("the validation engine's SAM on the card "
@@ -911,6 +978,7 @@ def main() -> int:
     ensure_built()
 
     # ---- phase 2: data, classifier, kernel-vs-plain checks
+    from desamba_tpu_torch.convert import build_tables
     from desamba_tpu_torch.engine.fast_engine import FastClassifier
     from desamba_tpu_torch.index.loader import load_index
     from desamba_tpu_torch.io.fastx import read_fastx
@@ -931,6 +999,10 @@ def main() -> int:
 
     chunks = first_chunks(cl, reads)
     checks = check_kernels(kernel_inputs(cl, *chunks[min(chunks)][:2]))
+    t0 = time.time()
+    gidx = load_index(make_golden_index())
+    t_golden = time.time() - t0
+    vote_checks = check_vote(cl, reads, build_tables(gidx, "cpu"))
     t0 = time.time()
     cl.classify_batch(reads, block=BLOCK)
     log(f"smoke: warm pass {time.time() - t0:.1f} s")
@@ -953,10 +1025,10 @@ def main() -> int:
     if not all(launches[k] > 0 for k in FAST_KERNELS):
         raise AssertionError(f"a kernel was not launched: {launches}")
     # launches a chunk (stage 1 launches once a chunk): stages 0, 3 and 4
-    # and stage 2's row grid once; the two loops three times, the
-    # compactions four
+    # (locate and the vote each) and stage 2's row grid once; the two
+    # loops three times, the compactions four
     per_chunk = dict(unpack=1, interval_search=3, compact=4, row_grid=1,
-                     row_walks=3, locate=1, band_windows=1,
+                     row_walks=3, locate=1, vote=1, band_windows=1,
                      band_score_packed=1, combine=1)
     off = {k: v for k, v in per_chunk.items()
            if launches[k] != v * launches["stage1"]}
@@ -1021,7 +1093,7 @@ def main() -> int:
           flush=True)
 
     # ---- phase 5: where the time goes
-    tg = where_time_goes(cl, chunks, reads, card)
+    tg = where_time_goes(cl, chunks, reads, card, checks["vote"])
     print("time " + json.dumps(tg), flush=True)
     for key, row in tg["stages"].items():
         for st in ("0 unpack", "2 FM search+walks", "3 locate+vote",
@@ -1030,17 +1102,19 @@ def main() -> int:
             log(f"smoke: stage {st} at {key}: device {r['device_ms']:.3f} "
                 f"ms, span {r['span_ms']:.3f} ms, "
                 f"{r['kernels_per_call']:.0f} launches a call")
-        log(f"smoke: plain K7 (vote) at {key}: bound "
-            f"{row['3 locate+vote']['vote_bound']}, all pairs "
-            f"{row['3 locate+vote']['vote_bound_all_pairs']}")
-        n2 = row["2 FM search+walks"]["kernels_per_call"]
-        if n2 > STAGE2_MAX_LAUNCHES:
-            raise AssertionError(f"stage 2 launched {n2} kernels a chunk "
-                                 f"at {key} (at most {STAGE2_MAX_LAUNCHES})")
+        r3 = row["3 locate+vote"]
+        log(f"smoke: vote (K7) at {key}: kernel {r3['vote_ms']:.4f} ms, "
+            f"bound {r3['vote_bound'][0]:.4f} ms ({r3['vote_bound'][1]})")
+        for st, most in (("2 FM search+walks", STAGE2_MAX_LAUNCHES),
+                         ("3 locate+vote", STAGE3_MAX_LAUNCHES)):
+            n_st = row[st]["kernels_per_call"]
+            if n_st > most:
+                raise AssertionError(f"stage {st} launched {n_st} kernels "
+                                     f"a chunk at {key} (at most {most})")
     on_path = tg["batch"]["hand_kernels"]
 
     # ---- phase 6: the validation engine
-    val = validation_phase(cl, reads, card)
+    val = validation_phase(cl, reads, card, gidx, t_golden)
     print("validation " + json.dumps(
         {k: v for k, v in val.items() if k != "checks"}), flush=True)
     vc = val["checks"]
@@ -1054,9 +1128,12 @@ def main() -> int:
                  index_list={key: checks[key] for key in checks
                              if key.startswith(k + "[")})
             for k in FAST_KERNELS]
-    # K1 on the validation path: its first call there and its launches
-    rows[[r["name"] for r in rows].index("interval_search")][
-        "validation_path"] = vc["interval_search"]
+    # K1 on the validation path: its first call there and its launches;
+    # the vote's checks at the other widths and on vote_cases
+    names = [r["name"] for r in rows]
+    rows[names.index("interval_search")]["validation_path"] = vc[
+        "interval_search"]
+    rows[names.index("vote")]["other_calls"] = vote_checks
     rows += [dict(name=k, route="cuda", source=kernels.source_path(k),
                   replaces=REPLACES[k], **vc[k])
              for k in ("probe_reads", "row_walks_trace")]

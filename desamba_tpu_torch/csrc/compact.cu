@@ -44,23 +44,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wrap.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-// int32 addition and subtraction that wrap, as torch's and XLA's int32
-// arithmetic does
-__device__ __forceinline__ int add_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) +
-                          static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int sub_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) -
-                          static_cast<unsigned>(b));
-}
+using dsb::add_wrap;
+using dsb::sub_wrap;
 
 // Lane indices, or the entries of a source list, whose done flag is 0.
 struct Lanes {

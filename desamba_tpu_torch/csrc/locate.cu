@@ -27,6 +27,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wrap.cuh"
+
 namespace {
 
 constexpr int kLfcShift = 29;
@@ -42,17 +44,8 @@ __device__ __forceinline__ long long clamp_index(long long i, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-// int32 addition and subtraction that wrap, as torch's and XLA's int32
-// arithmetic does
-__device__ __forceinline__ int add_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) +
-                          static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int sub_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) -
-                          static_cast<unsigned>(b));
-}
+using dsb::add_wrap;
+using dsb::sub_wrap;
 
 __global__ void locate_kernel(
     const unsigned* __restrict__ lfc, long long n_lfc, long long n_pad,

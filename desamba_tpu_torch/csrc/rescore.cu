@@ -30,17 +30,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wrap.cuh"
+
 namespace {
 
-__device__ __forceinline__ int add_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) +
-                          static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int sub_wrap(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) -
-                          static_cast<unsigned>(b));
-}
+using dsb::add_wrap;
+using dsb::sub_wrap;
 
 __device__ __forceinline__ long long clamp_index(long long i, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);

@@ -11,8 +11,9 @@ package's, step for step, with the same static schedule and caps:
           per-row LF walks, each as burst / compact / resume (ops/fm's
           two loops resume through ops/compact's index lists; all four
           are hand CUDA kernels)
-  stage3  SA-sample resolution and reference positions (ops/locate.locate,
-          a hand CUDA kernel) and the windowed diagonal vote
+  stage3  SA-sample resolution and reference positions (ops/locate.locate)
+          and the windowed diagonal vote (ops/vote.vote), each a hand CUDA
+          kernel
   stage4  candidate windows (ops/rescore.band_windows), SWAR banded
           rescore (ops/matchblock) and the strand + candidate combine in
           the reference's odd/even tie order (ops/rescore.combine), each a
@@ -42,8 +43,8 @@ from ..constants import (AMB_LARGE_L, AMB_MARGIN, AMB_MARGIN_LARGE,
                          FILTER_MIN_SCORE_SHORT_3G, FM_EXT_CAP, IV_BURST,
                          IV_MID, LONG_OVERLAP, NGS_MAX_READ_L, PACK_KEYS,
                          REFPOS_PER_ANCHOR, ROWS_PER_SEARCH, SHORT_3G_READ_L,
-                         STEP_EK, VOTE_TILE, WALK_BURST, WALK_MID, WALK_TAIL,
-                         _band, _bucket, _pow2)
+                         STEP_EK, WALK_BURST, WALK_MID, WALK_TAIL, _band,
+                         _bucket, _pow2)
 from ..ops.compact import compact, compact_plain, row_grid, row_grid_plain
 from ..ops.fm import (interval_search_plain, interval_search_state, iv_init,
                       row_walks_plain, row_walks_state)
@@ -57,6 +58,7 @@ from ..ops.seeds import stage1_plain
 # stage 0's two steps, also under the JAX module's names
 from ..ops.unpack import read_words as _read_words  # noqa: F401
 from ..ops.unpack import stage0_unpack, unpack, unpack_plain  # noqa: F401
+from ..ops.vote import vote, vote_plain
 
 I32 = torch.int32
 # the functions the stages call, by kernel name (kernels.KERNELS): the
@@ -65,14 +67,14 @@ I32 = torch.int32
 KERNEL_OPS = dict(unpack=unpack, stage1=stage1_op,
                   interval_search=interval_search_state, compact=compact,
                   row_grid=row_grid, row_walks=row_walks_state,
-                  locate=locate_op,
+                  locate=locate_op, vote=vote,
                   band_windows=band_windows,
                   band_score_packed=band_score_packed, combine=combine)
 PLAIN_OPS = dict(unpack=unpack_plain, stage1=stage1_plain,
                  interval_search=interval_search_plain,
                  compact=compact_plain, row_grid=row_grid_plain,
                  row_walks=row_walks_plain, locate=locate_plain,
-                 band_windows=band_windows_plain,
+                 vote=vote_plain, band_windows=band_windows_plain,
                  band_score_packed=band_score_packed_plain,
                  combine=combine_plain)
 
@@ -91,9 +93,9 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
                  nw0: int = 0, ops=KERNEL_OPS):
     """Returns (stage1, stage2, stage3, stage4) closed over the static
     exist-filter parameters; `ops` is KERNEL_OPS or PLAIN_OPS."""
-    s1, iv, cp, rg, rw, lc, bw, bsp, cmb = (ops[k] for k in (
+    s1, iv, cp, rg, rw, lc, vt, bw, bsp, cmb = (ops[k] for k in (
         "stage1", "interval_search", "compact", "row_grid", "row_walks",
-        "locate", "band_windows", "band_score_packed", "combine"))
+        "locate", "vote", "band_windows", "band_score_packed", "combine"))
 
     def stage1(w01, codes2, lengths2):
         """(lo26, kidx, runlen, n_exist) of the STEP_EK probe grid."""
@@ -146,59 +148,13 @@ def build_stages(lek: int, sbm: int, mask_bits: int, min_match: int,
 
     def stage3(fm, loc, lengths2, fsp_c, hit_c, total_c, qleft_c, sel,
                B2: int, nwR: int):
-        """Anchor resolution and the exact windowed diagonal vote on the
-        compacted lanes; sel // nwR is the read row (B2 for unused slots,
-        dropped) and sel % nwR the anchor slot in the dense [B2, A]
-        layout."""
-        dev = fsp_c.device
+        """Anchor resolution (locate) and the exact windowed diagonal vote
+        (vote) on the compacted lanes; sel // nwR is the read row (B2 for
+        unused slots, dropped) and sel % nwR the anchor slot in the dense
+        [B2, A] layout. Returns (ref_c, diag_c, vote_c), int32[B2, 3]."""
         ref, gpos, pvalid = lc(fm, loc, fsp_c, hit_c, REFPOS_PER_ANCHOR)
-        P = ref.shape[1]
-        A = nwR * P
-        b_i = (sel // nwR).long()
-        slot = ((sel % nwR)[:, None] * P
-                + torch.arange(P, dtype=I32, device=dev)).long()
-
-        def dense(fill, val):  # [B2 + 1, A] scatter, row B2 dropped
-            d = torch.full((B2 + 1, A), fill, dtype=I32, device=dev)
-            d[b_i[:, None], slot] = val.to(I32)
-            return d[:B2]
-
-        ref_a = dense(-1, torch.where(pvalid, ref, -1))
-        diag_a = dense(0, gpos - qleft_c[:, None])
-        w_a = dense(0, torch.where(pvalid, total_c[:, None], 0))
-        tol = torch.clamp(lengths2 >> 4, 30, 160)[:, None, None]
-        # score[b, i] = sum_j w[b, j] * [same ref & |diag diff| <= tol],
-        # over j-tiles of VOTE_TILE to bound memory
-        Ap = -(-A // VOTE_TILE) * VOTE_TILE
-        pad = torch.nn.functional.pad
-        refp = pad(ref_a, (0, Ap - A), value=-2)
-        diagp = pad(diag_a, (0, Ap - A))
-        wp = pad(w_a, (0, Ap - A))
-        score = torch.zeros((B2, A), dtype=I32, device=dev)
-        for j0 in range(0, Ap, VOTE_TILE):
-            rj = refp[:, None, j0 : j0 + VOTE_TILE]
-            dj = diagp[:, None, j0 : j0 + VOTE_TILE]
-            wj = wp[:, None, j0 : j0 + VOTE_TILE]
-            same = (ref_a[:, :, None] == rj) & (
-                (diag_a[:, :, None] - dj).abs() <= tol)
-            score += (same * wj).sum(2, dtype=I32)
-        score = torch.where(ref_a >= 0, score, -1)
-
-        def take(sc):
-            i1 = torch.argmax(sc, 1, keepdim=True)  # first index on ties
-            v1 = sc.gather(1, i1)[:, 0]
-            r1 = torch.where(v1 > 0, ref_a.gather(1, i1)[:, 0], -1)
-            return r1, diag_a.gather(1, i1)[:, 0], torch.clamp(v1, min=0)
-
-        # three candidates per strand: the winner, the best on a far
-        # diagonal, the best on another ref (cly.c:200-223)
-        r1, d1, v1 = take(score)
-        far = (ref_a != r1[:, None]) | (
-            (diag_a - d1[:, None]).abs() > 2 * tol[:, :, 0])
-        r2, d2, v2 = take(torch.where(far, score, -1))
-        r3, d3, v3 = take(torch.where(ref_a != r1[:, None], score, -1))
-        return (torch.stack([r1, r2, r3], 1), torch.stack([d1, d2, d3], 1),
-                torch.stack([v1, v2, v3], 1))
+        return vt(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2,
+                  nwR)
 
     def stage4(ra, read_w2, lengths2, ref_c, diag_c, vote_c, B2: int,
                K: int):

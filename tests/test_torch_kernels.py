@@ -339,6 +339,240 @@ def check_locate_coverage(res, expand, groups, P):
     assert 0 < int(ok[g["random"]].sum()) < len(g["random"])
 
 
+def _wrap32(x):
+    """int64 values as the int32 values that hold their low 32 bits."""
+    return (np.asarray(x, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def vote_nwR(W, lek):
+    """Stage 3's nwR (n_win * ROWS_PER_SEARCH anchor lanes a read row) at
+    width W and e-kmer length lek."""
+    from desamba_tpu_torch.constants import ROWS_PER_SEARCH, STEP_EK
+    from desamba_tpu_torch.ops.ekmer import _grid
+    from desamba_tpu_torch.ops.seeds import WINDOW
+
+    return -(-_grid(W - lek + 1, STEP_EK) // WINDOW) * ROWS_PER_SEARCH
+
+
+def vote_cases(fm, loc, W, lek=16, B2=40, seed=15):
+    """Stage 2's outputs as stage 3 takes them, at width W (nwR =
+    vote_nwR(W, lek)) on the tables fm, loc (on the CPU): (fsp_c int32[NC],
+    hit_c bool[NC], total_c int32[NC], qleft_c int32[NC], sel int32[NC],
+    lengths2 int32[B2], nwR, groups {case: read rows}). The lanes are in
+    random order; lane c holds slot sel[c] % nwR of row sel[c] // nwR, and
+    its anchor's diagonal is gpos - qleft_c. Rows of length 1600 (tol 100)
+    unless the case says; a and c below are BWT rows that locate to one
+    occurrence on ref 0 and on ref 1. The cases:
+    - "tie1", "tie2", "tie3": two anchors tie at the best positive score
+      of take 1, of take 2 (two far diagonals) and of take 3 (two anchors
+      on the other ref);
+    - "tol_edge": same-ref anchors exactly tol apart (they vote for each
+      other) and tol + 1 apart (they do not);
+    - "far_diag": take 2 picks an anchor on the winner's ref more than
+      2 tol away, over a higher-scoring one exactly 2 tol away (not far);
+    - "far_ref": take 2 picks an anchor on another ref on the winner's
+      diagonal;
+    - "other_ref": take 2 picks a far diagonal of the winner's ref, take 3
+      an anchor on another ref;
+    - "empty_invalid0": no valid anchor, and slot 0 holds a lane with no
+      hit whose gpos - qleft wraps int32 (the candidates' diagonal); a
+      lane that locates to no occurrence; and a row with no lane at all;
+    - "score_le0": valid anchors of weight 0 and -7 (scores 0 and -7);
+    - "apart_2_31": same-ref anchors 2^31 apart (|INT_MIN| == INT_MIN, so
+      they vote for each other) and at INT_MAX and INT_MIN (1 apart once
+      wrapped);
+    - "wrap_sum": three and four anchors of weight ~2^30 on one diagonal,
+      whose sums wrap int32;
+    - "tol_len": lengths 0, 500, 2559, 2560 and 9000 (tol 30, 31, 159,
+      160, 160) with anchors 31 and 160 apart;
+    - "multi": lanes that locate to 2-4 occurrences;
+    - "random": random lanes, 85% with a hit, on random diagonals around
+      a centre; the last row also fills slot nwR - 1.
+    Besides, lanes of valid anchors carry the fill sel = B2 * nwR (dropped
+    by stage 3)."""
+    from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR as P
+    from desamba_tpu_torch.ops.locate import locate_plain
+
+    rng = np.random.default_rng(seed)
+    nwR = vote_nwR(W, lek)
+    assert nwR >= 6 and B2 >= 24
+    pool = rng.choice(fm.L, min(fm.L, 4000), replace=False).astype(np.int32)
+    pr = torch.from_numpy(pool)
+    ref_v, gpos_v, pv = (t.numpy() for t in locate_plain(
+        fm, loc, pr, torch.ones(pool.size, dtype=torch.bool), P))
+    gpos_i = locate_plain(fm, loc, pr, torch.zeros(pool.size,
+                                                  dtype=torch.bool), P)[1]
+    g_hit = dict(zip(pool.tolist(), gpos_v[:, 0].tolist()))
+    g_miss = dict(zip(pool.tolist(), gpos_i[:, 0].tolist()))
+    n_occ = pv.sum(1)
+    a, c = (int(pool[(n_occ == 1) & pv[:, 0] & (ref_v[:, 0] == r)][0])
+            for r in (0, 1))
+    zero = pool[n_occ == 0]
+    multi = pool[n_occ >= 2]
+    lanes, lens, groups = [], [], {}
+
+    def row(name, length=1600):
+        groups.setdefault(name, []).append(len(lens))
+        lens.append(length)
+        return len(lens) - 1
+
+    def put(b, k, fsp, D, w, hit=True):
+        """lane at slot k of row b whose slot-0 anchor has diagonal D"""
+        g = (g_hit if hit else g_miss)[int(fsp)]
+        lanes.append((b * nwR + k, fsp, hit, w, int(_wrap32(g - D))))
+
+    T = 100
+    b = row("tie1")
+    put(b, 1, c, 9000, 50), put(b, 3, a, 1000, 50), put(b, 4, a, 1300, 10)
+    b = row("tie2")
+    put(b, 0, a, 0, 100), put(b, 2, a, 5000, 40), put(b, 5, a, -5000, 40)
+    b = row("tie3")
+    put(b, 0, a, 0, 100), put(b, 1, c, 7, 30), put(b, 4, c, 20000, 30)
+    b = row("tol_edge")
+    put(b, 0, a, 0, 1000), put(b, 1, a, T, 5), put(b, 2, a, -T - 1, 6)
+    b = row("far_diag")
+    put(b, 0, a, 0, 1000), put(b, 1, a, 2 * T, 9)
+    put(b, 3, a, -2 * T - 1, 8)
+    b = row("far_ref")
+    put(b, 0, a, 0, 100), put(b, 2, c, 0, 60)
+    b = row("other_ref")
+    put(b, 0, a, 0, 100), put(b, 1, a, 10000, 80), put(b, 3, c, 50, 30)
+    b = row("empty_invalid0")
+    f = next(int(r) for r in pool if g_miss[int(r)] >= 3)
+    # qleft near INT_MIN: gpos - qleft passes INT_MAX and wraps
+    lanes.append((b * nwR, f, False, 7, I32_MIN + 3))
+    put(b, 2, zero[0], 40, 9)
+    row("empty_invalid0")
+    b = row("score_le0")
+    put(b, 1, a, 123, 0), put(b, 2, c, 500, -7)
+    b = row("score_le0")
+    put(b, 3, c, 500, -7)
+    b = row("apart_2_31")
+    put(b, 0, a, 1000, 40), put(b, 1, a, 1000 - 2 ** 31, 30)
+    put(b, 4, c, I32_MAX, 5), put(b, 5, c, I32_MIN, 6)
+    b = row("wrap_sum")
+    for k, D in enumerate((0, 5, -5)):
+        put(b, k, a, D, 2 ** 30 + 3)
+    put(b, 3, c, 0, 5)
+    b = row("wrap_sum")
+    for k, D in enumerate((0, 5, -5, 9)):
+        put(b, k, a, D, 2 ** 30 + 1)
+    put(b, 5, c, 0, 3)
+    for length in (0, 500, 2559, 2560, 9000):
+        b = row("tol_len", length)
+        put(b, 0, a, 0, 10), put(b, 1, a, 31, 11), put(b, 2, a, -160, 12)
+        put(b, 3, a, 200, 13)
+    b = row("multi")
+    for k in range(3):
+        put(b, k, multi[k], int(rng.integers(-50, 50)), 20 + k)
+    while len(lens) < B2:
+        b = row("random", int(rng.integers(W // 2, W + 1)))
+        centre = int(rng.integers(0, 2 ** 20))
+        used = rng.random(nwR) < 0.5
+        used[-1] &= b < B2 - 1  # the last row's last slot is set below
+        for k in np.flatnonzero(used):
+            put(b, int(k), rng.choice(pool),
+                centre + int(rng.normal(0, 80)), int(rng.integers(20, 61)),
+                bool(rng.random() < 0.85))
+    put(B2 - 1, nwR - 1, a, 17, 33)
+    for _ in range(5):  # unused lanes of valid anchors: dropped
+        lanes.append((B2 * nwR, a, True, 40, 0))
+    lanes = [lanes[i] for i in rng.permutation(len(lanes))]
+    sel, fsp, hit, total, qleft = (np.array(x) for x in zip(*lanes))
+    t32 = lambda x: torch.from_numpy(x.astype(np.int32))
+    return (t32(fsp), torch.from_numpy(hit.astype(bool)), t32(total),
+            t32(qleft), t32(sel), t32(np.array(lens)), nwR,
+            {k: np.array(v) for k, v in groups.items()})
+
+
+def check_vote_coverage(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2,
+                        B2, nwR, groups):
+    """The cases of vote_cases reach what they are meant to, on locate's
+    (ref, gpos, pvalid) for its lanes: each row's dense layout, scores
+    and three takes recomputed in numpy (int64, wrapped where int32
+    wraps)."""
+    ref, gpos, pv = ref.numpy(), gpos.numpy(), pvalid.numpy()
+    tot, ql, sel = total_c.numpy(), qleft_c.numpy(), sel.numpy()
+    lens = lengths2.numpy()
+    P = ref.shape[1]
+    A = nwR * P
+    assert ((sel == B2 * nwR)[:, None] & pv).any()  # dropped valid anchors
+    assert set(np.clip(lens >> 4, 30, 160).tolist()) >= {30, 31, 159, 160}
+    rows = {}
+    for b in range(B2):
+        ln = np.flatnonzero(sel // nwR == b)
+        slot = ((sel[ln] % nwR)[:, None] * P + np.arange(P)).ravel()
+        r_a = np.full(A, -1, np.int64)
+        d64 = np.zeros(A, np.int64)
+        w_a = np.zeros(A, np.int64)
+        r_a[slot] = np.where(pv[ln], ref[ln], -1).ravel()
+        d64[slot] = (gpos[ln].astype(np.int64) - ql[ln, None]).ravel()
+        w_a[slot] = np.where(pv[ln], tot[ln, None], 0).ravel()
+        d_a = _wrap32(d64)
+        tol = int(np.clip(lens[b] >> 4, 30, 160))
+        diff = _wrap32(d_a[:, None] - d_a[None, :])
+        adiff = np.where(diff == I32_MIN, I32_MIN, np.abs(diff))
+        same = r_a[:, None] == r_a[None, :]
+        s64 = ((same & (adiff <= tol)) * w_a[None, :]).sum(1)
+        score = np.where(r_a >= 0, _wrap32(s64), -1)
+        i1 = int(np.argmax(score))
+        r1 = int(r_a[i1]) if score[i1] > 0 else -1
+        dd = _wrap32(d_a - d_a[i1])
+        ad1 = np.where(dd == I32_MIN, I32_MIN, np.abs(dd))
+        far = (r_a != r1) | (ad1 > 2 * tol)
+        m2 = np.where(far, score, -1)
+        m3 = np.where(r_a != r1, score, -1)
+        rows[b] = dict(r_a=r_a, d64=d64, d_a=d_a, s64=s64, score=score,
+                       tol=tol, same=same & (r_a[:, None] >= 0), r1=r1,
+                       adiff=adiff, ad1=ad1, m2=m2, m3=m3,
+                       i2=int(np.argmax(m2)), i3=int(np.argmax(m3)),
+                       lanes0=ln[sel[ln] % nwR == 0])
+
+    def case(name):
+        return [rows[b] for b in groups[name]]
+
+    for name, key in (("tie1", "score"), ("tie2", "m2"), ("tie3", "m3")):
+        for x in case(name):
+            top = x[key].max()
+            assert top > 0 and (x[key] == top).sum() >= 2, name
+    for x in case("tol_edge"):
+        t = x["tol"]
+        assert (x["same"] & (x["adiff"] == t)).any()
+        assert (x["same"] & (x["adiff"] == t + 1)).any()
+    for x in case("far_diag"):
+        i2, t = x["i2"], x["tol"]
+        assert x["m2"][i2] > 0 and x["r_a"][i2] == x["r1"] >= 0
+        assert x["ad1"][i2] > 2 * t
+        edge = (x["r_a"] == x["r1"]) & (x["ad1"] == 2 * t)
+        assert (x["score"][edge] > x["m2"][i2]).any()
+    for x in case("far_ref"):
+        i2 = x["i2"]
+        assert x["m2"][i2] > 0 and x["r_a"][i2] != x["r1"] >= 0
+        assert x["ad1"][i2] <= 2 * x["tol"]
+    for x in case("other_ref"):
+        i2, i3 = x["i2"], x["i3"]
+        assert x["m2"][i2] > x["m3"][i3] > 0 and i2 != i3
+        assert x["r_a"][i2] == x["r1"] and x["r_a"][i3] != x["r1"] >= 0
+    inv = case("empty_invalid0")
+    assert all((x["r_a"] < 0).all() for x in inv)
+    assert any(len(x["lanes0"]) and not pv[x["lanes0"]].any()
+               and (x["d64"][0] > I32_MAX or x["d64"][0] < I32_MIN)
+               for x in inv)
+    assert any((x["r_a"] >= 0).any() and x["score"][x["r_a"] >= 0].min() <= 0
+               for x in case("score_le0"))
+    for x in case("apart_2_31"):
+        d = x["d_a"][:, None] - x["d_a"][None, :]
+        m = x["same"] & (x["adiff"] <= x["tol"])
+        assert (m & (np.abs(d) == 2 ** 31)).any()
+        assert (m & (np.abs(d) > 2 ** 31)).any()
+    for x in case("wrap_sum"):
+        ok = x["r_a"] >= 0
+        assert (x["s64"][ok] != x["score"][ok]).any()
+    for x in case("multi"):
+        assert ((x["r_a"] >= 0).reshape(nwR, P).sum(1) >= 2).any()
+    assert (rows[B2 - 1]["r_a"][-P:] >= 0).any()
+
+
 # ------------------------------------------------ stage 2 compactions --
 STAGE2_BURSTS = ("IV_BURST", "IV_MID", "WALK_BURST", "WALK_MID")
 
