@@ -30,7 +30,9 @@ Phases (any failure raises, and the script exits nonzero):
      the vote (K7) also on the first BLOCK bench reads encoded at W = 4096
      and 8192 (the buckets of 3-8 kb reads and of long-read segments), and
      on tests/test_torch_kernels.vote_cases (on the golden index, built
-     by a child process) at every width bucket up to 8192; then one warm
+     by a child process) at every width bucket up to 8192; the whole
+     pipeline (build_full's [7, Bp]) of the kernels against that of the
+     plain versions on those W = 4096 and 8192 encodings; then one warm
      classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
@@ -41,7 +43,9 @@ Phases (any failure raises, and the script exits nonzero):
      native engine (gated at 0.99, bench.py's gate; truth accuracy)
   4. every read through a classifier running the plain versions
      (pure-device reads/s, three runs): FastResults identical to the
-     kernel path's pure-device run
+     kernel path's pure-device run; and every read through both paths at
+     max_width = LONG_WIDTH, so that the reads above it take
+     _classify_long: identical FastResults
   5. where the time goes: for the first full chunk of each width bucket,
      each stage's CUDA-event span (median of 10; it includes the host's
      launch gaps) beside its device time (the summed kernel rows of
@@ -66,10 +70,24 @@ Phases (any failure raises, and the script exits nonzero):
      and each of the path's kernels (probe_reads, K1, row_walks_trace)
      held against its plain version on its first call, timed with L2
      evicted, beside its bound
-Prints a `kernels` JSON line (the fast path's eleven kernels, then the
-validation engine's two; K1's row also carries its validation-path call,
-the vote's its checks at the other widths and on vote_cases),
-then {"ok": true, "device": {...}} last.
+  7. the genome-sharded classifier (engine/sharded_fast): the community
+     split into N_SHARDS genome shards by a child process (the JAX
+     package's build_sharded_index, timed), loaded on the card; the merge
+     kernel (K11) against its plain version on each chunk's stacked shard
+     results, timed on the first with L2 evicted beside its bound; launch
+     counts set to 0 just before a pure-device classify_batch and read
+     just after (each stage kernel N_SHARDS times a chunk, the merge
+     once); pure-device and exact-replay reads/s (median of N_RATE_CALLS
+     with the spread; the pure-device calls in turns with the monolithic
+     classifier's) and the fallback fraction; the sharded kernel path
+     identical to the sharded plain path on every read; agreement with
+     the native engine (gated at 0.99), the reads called otherwise than by
+     the monolithic classifier, truth accuracy; each stage's device time
+     on the first chunk, shard by shard, and the batch's device time
+Prints a `kernels` JSON line (the fast path's eleven kernels, the
+validation engine's two, then the sharded path's merge; K1's row also
+carries its validation-path call, the vote's its checks at the other
+widths and on vote_cases), then {"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
 """
@@ -80,6 +98,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, "build", "bench_cache")
@@ -96,11 +115,14 @@ SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
 STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
 STAGE3_MAX_LAUNCHES = 6   # and of stage 3 (locate, then the vote)
+N_SHARDS = 2          # phase 7's genome shards (SHARDED_r05.json's count)
+N_RATE_CALLS = 3      # calls each of phase 7's rates is the median of
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 GOLDEN_IDX = os.path.join(ROOT, "build", "golden_idx")
 N_VALIDATE = 768      # bench reads through the validation engine (phase 6)
 VOTE_WIDTHS = (4096, 8192)  # the vote's bench-read checks besides W = 2048
 VOTE_CASE_ROWS = 101  # read rows of each vote_cases check
+LONG_WIDTH = 2048     # phase 4's max_width: longer reads take _classify_long
 # the CUDA functions each fast-path kernel's wrapper launches (its
 # profiler rows), once each a call
 GLOBAL = {
@@ -117,6 +139,8 @@ GLOBAL = {
     "combine": ("combine_kernel",),
 }
 FAST_KERNELS = tuple(GLOBAL)
+# and of the sharded path's merge
+HAND_FUNCS = {**GLOBAL, "shard_merge": ("shard_merge_kernel",)}
 # the calls through an index list that stage 2 makes, each held against
 # its plain version besides its kernel's first call
 INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]", "compact[src]")
@@ -134,6 +158,7 @@ REPLACES = {
     "combine": "desamba_tpu/engine/fast_engine.py:452",
     "probe_reads": "desamba_tpu/ops/ekmer.py:215",
     "row_walks_trace": "desamba_tpu/ops/fm.py:262",
+    "shard_merge": "desamba_tpu/engine/sharded_fast.py:260",
 }
 
 
@@ -238,6 +263,33 @@ def device_ms(fn, n: int = 5):
     ev = device_rows(calls)
     return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
             sum(e.count for e in ev) / n)
+
+
+def checked_device_ms(fn, n: int = 5, tries: int = 3) -> dict:
+    """fn's device time a call over n profiled calls (the summed kernel
+    rows of torch.profiler) and its kernels a call, beside the hand
+    kernels its wrappers launched in one call (kernels.launches, each
+    launch's CUDA functions in HAND_FUNCS) and those the profiler saw.
+    Late in the smoke the profiler has missed some: such a profile is
+    taken again, up to `tries` in all, and device_ms is None where the
+    last still saw fewer, since its sum then misses their time."""
+    from desamba_tpu_torch import kernels
+
+    before = dict(kernels.launches)
+    fn()
+    hand = sum((kernels.launches[k] - before[k]) * len(HAND_FUNCS.get(k, ()))
+               for k in before)
+    for _ in range(tries):
+        ev = device_rows(lambda: [fn() for _ in range(n)])
+        seen = sum(e.count for e in ev if any(
+            g in e.key for fs in HAND_FUNCS.values() for g in fs)) / n
+        if seen >= hand:
+            break
+    ms = sum(e.self_device_time_total for e in ev) / 1e3 / n
+    return dict(device_ms=ms if seen >= hand else None,
+                kernels_per_call=sum(e.count for e in ev) / n,
+                hand_kernels_launched=hand, hand_kernels_seen=seen,
+                rows=ev)
 
 
 def first_chunks(cl, reads) -> dict:
@@ -387,6 +439,14 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
         return (nbytes(state[2], state[3], seed_ok, *out)
                 + 4 * SECTOR * distinct_sectors(lanes),
                 10 * S * R + 20 * cap)
+    if name == "shard_merge":
+        res, maps, map_off, _ = args
+        # the stacked results and the maps in, the merged rows out; ~25
+        # operations a (shard, read) over the three passes (the remap's
+        # compare, clip and load, the maxima and the tie tests) and ~10 a
+        # read for the picks
+        return (nbytes(res, maps, map_off, out),
+                25 * res.shape[0] * res.shape[2] + 10 * res.shape[2])
     if name == "locate":
         return locate_work(*args, out)
     if name == "vote":
@@ -617,27 +677,49 @@ def check_kernels(cap: dict) -> dict:
     return out
 
 
-def check_vote(cl, reads, gtabs) -> dict:
+def check_vote(cl, reads, gtabs) -> tuple[dict, dict]:
     """The vote kernel against vote_plain beyond the W = 2048 chunk: on
     the first BLOCK bench reads encoded at each of VOTE_WIDTHS (the
     kernels' stages 0-2 and locate give its inputs), and on vote_cases
     (the golden tables gtabs, on the CPU) at every width bucket up to the
     classifier's max_width. Equal exactly, or the run fails. The bench
-    calls are timed as check_kernels times them."""
+    calls are timed as check_kernels times them. Also the whole pipeline
+    (build_full's [7, BLOCK]) of the kernels against that of the plain
+    versions on each VOTE_WIDTHS encoding. Returns (the vote's checks,
+    the pipeline's)."""
     import torch
 
     from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR, _bucket
-    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
+    from desamba_tpu_torch.engine.fast_engine import (KERNEL_OPS, PLAIN_OPS,
+                                                      build_full)
     from desamba_tpu_torch.ops.locate import locate_plain
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from test_torch_kernels import vote_cases
 
     kern, plain = KERNEL_OPS["vote"], PLAIN_OPS["vote"]
-    calls = {}
+    ek = cl.ek
+    plain_full = build_full(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                            ek.n_words0, PLAIN_OPS)
+    calls, full = {}, {}
     for W in VOTE_WIDTHS:
         packed, lens, _ = cl._encode(reads[:BLOCK], W=W, Bp=BLOCK)
         calls[f"W={W}"] = kernel_inputs(cl, packed, lens)["vote"][0]
+        # the whole pipeline (stages 0-4 and the pack), kernels against
+        # plain versions, on the same encoding
+        p = torch.from_numpy(packed).to(cl.device)
+        ln = torch.from_numpy(lens).to(cl.device)
+        got = cl._full(cl.fm, cl.loc, cl.ra, ek.w01, p, ln)
+        ref = plain_full(cl.fm, cl.loc, cl.ra, ek.w01, p, ln)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err != 0:
+            raise AssertionError(f"build_full at W={W}: the kernel path's "
+                                 f"[7, {BLOCK}] differs from the plain "
+                                 f"path's (max abs err {err})")
+        full[f"W={W}"] = dict(max_abs_err=err, called=int((got[1] >= 0).sum()))
+        log(f"smoke: build_full at W={W} ({BLOCK} reads): kernel path == "
+            f"plain path, {full[f'W={W}']['called']} reads with a ref")
     fm, _, loc, _ = gtabs
     lek = cl.ek.lek
     for W in sorted({_bucket(max(n, lek + 2))
@@ -669,7 +751,7 @@ def check_vote(cl, reads, gtabs) -> dict:
             f"; kernel {out[key]['ms']:.4f} ms, plain "
             f"{out[key]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})" if key.startswith("W=") else ""))
-    return out
+    return out, full
 
 
 def where_time_goes(cl, chunks: dict, reads, card: str,
@@ -903,9 +985,250 @@ def validation_phase(cl, reads, card: str, gidx, build_s: float) -> dict:
                 n_native_differ=len(differ), checks=checks)
 
 
-def make_data() -> tuple[str, str]:
-    """(reads FASTQ, index directory) of the bench data, made once under
-    CACHE by bench.prepare in a child process."""
+def make_sharded_index(fa: str) -> tuple[str, float]:
+    """(shard root, seconds): the community FASTA split into N_SHARDS
+    genome shards under CACHE, once, by the JAX package's
+    build_sharded_index (its size-balanced partition, one process a
+    shard) in a child process, as make_data builds the monolithic index
+    (the port has no index builder yet)."""
+    root = os.path.join(CACHE, f"shards{N_SHARDS}_"
+                        f"{os.path.splitext(os.path.basename(fa))[0]}")
+    if os.path.exists(os.path.join(root, "shards.json")):  # written last
+        return root, 0.0
+    code = ("import sys\n"
+            "from desamba_tpu.parallel.shard_index import "
+            "build_sharded_index\n"
+            "build_sharded_index(sys.argv[1], sys.argv[2], int(sys.argv[3]))"
+            "\n")
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-c", code, fa, root, str(N_SHARDS)],
+                       cwd=ROOT, capture_output=True, text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"build_sharded_index failed:\n{p.stderr[-4000:]}")
+    return root, time.time() - t0
+
+
+def spread(xs) -> dict:
+    """Median, least and largest of a run's repeated rates."""
+    import statistics
+
+    return dict(median=statistics.median(xs), min=min(xs), max=max(xs),
+                runs=list(xs))
+
+
+def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
+    """Phase 7: the genome-sharded classifier (load_sharded_fast) on the
+    card, the bench community in N_SHARDS genome shards. The merge (K11)
+    against its plain version on each chunk's stacked shard results
+    (recorded in a warm pass), timed on the first; launch counts set to 0
+    just before a pure-device classify_batch and read just after (each
+    stage kernel N_SHARDS times a chunk, the merge once); pure-device and
+    exact_fallback rates (median of N_RATE_CALLS); the sharded kernel
+    path against the sharded plain path on every read; agreement with the
+    native engine's taxa (native_tids, phase 3's; gated at AGREE_MIN),
+    reads whose call differs from the monolithic classifier's (res,
+    res_dev: phase 3's), truth accuracy; where the time goes (the first
+    chunk of the narrowest bucket, stage by stage and shard by shard, and
+    one profiled classify_batch)."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, build_full
+    from desamba_tpu_torch.engine.sharded_fast import (ShardedFastClassifier,
+                                                       build_sharded_full,
+                                                       load_sharded_fast)
+    from desamba_tpu_torch.ops.merge import shard_merge, shard_merge_plain
+
+    root, build_s = make_sharded_index(fa)
+    log(f"smoke: {N_SHARDS} genome shards built in {build_s:.1f} s")
+    t0 = time.time()
+    scl = load_sharded_fast(root, device="cuda", exact_fallback=True)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    shards = [dict(refs=len(ix.ref_names), L=int(ix.L),
+                   mask_bits=t[1].mask_bits, filter_bytes=nbytes(t[1].w01),
+                   fm_bytes=nbytes(t[0].occ32, t[0].pad, t[0].hash13,
+                                   t[0].sa_uni, t[0].sa_off, t[0].lfc))
+              for ix, t in zip(scl.idxs, scl.shards)]
+    log(f"smoke: sharded classifier loaded in {init_s:.1f} s; shards "
+        f"{shards}; device memory {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    n = len(reads)
+    ek = scl.ek
+
+    # the merge's inputs, chunk by chunk, from a warm pass (with the
+    # replay, so that the host ShardedEngine is built before the rates)
+    cap = []
+
+    def rec(*a):
+        cap.append(a)
+        return shard_merge(*a)
+
+    path_full = scl._full
+    scl._full = build_sharded_full(ek.lek, ek.single_base_max, ek.mask_bits,
+                                   20, ek.n_words0, merge=rec)
+    scl.classify_batch(reads, block=BLOCK)
+    scl._full = path_full
+    scl.exact_fallback = False
+    err = 0
+    for a in cap:
+        got, ref = shard_merge(*a), shard_merge_plain(*a)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, ref))
+        if err != 0:
+            raise AssertionError(f"shard_merge differs from its plain "
+                                 f"version (max abs err {err}) at "
+                                 f"{tuple(a[0].shape)}")
+    a0 = cap[0]
+    shape = f"n_index={a0[0].shape[0]} Bp={a0[0].shape[2]}"
+    bound_ms, bound_by = bound("shard_merge", a0, shard_merge_plain(*a0))
+    merge = dict(max_abs_err=err, chunks_checked=len(cap),
+                 ms=cuda_ms(lambda: shard_merge(*a0), 20, cold=True),
+                 plain_ms=cuda_ms(lambda: shard_merge_plain(*a0), 20,
+                                  cold=True),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                 shape=shape)
+    log(f"smoke: shard_merge [{shape}] equal on {len(cap)} chunks; kernel "
+        f"{merge['ms']:.4f} ms, plain {merge['plain_ms']:.4f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+
+    # the path: launches a chunk, then the rates
+    rates_dev = []
+    kernels.reset_launches()
+    t0 = time.time()
+    res_s_dev = scl.classify_batch(reads, block=BLOCK)
+    torch.cuda.synchronize()
+    rates_dev.append(n / (time.time() - t0))
+    launches = dict(kernels.launches)
+    chunks = launches["shard_merge"]
+    per_chunk = dict(unpack=1, shard_merge=1, **{
+        k: N_SHARDS * v for k, v in dict(
+            stage1=1, interval_search=3, compact=4, row_grid=1, row_walks=3,
+            locate=1, vote=1, band_windows=1, band_score_packed=1,
+            combine=1).items()})
+    if chunks != len(cap) or any(launches[k] != v * chunks
+                                 for k, v in per_chunk.items()):
+        raise AssertionError(f"sharded path: launches other than "
+                             f"{per_chunk} a chunk over {len(cap)} chunks: "
+                             f"{launches}")
+    # the remaining pure-device calls in turns with the monolithic
+    # classifier's (mono, sharded, sharded, mono, ...): calls on one card
+    # differ by a fifth to a third, so only turns compare the two
+    cl.exact_fallback = False
+    rates_mono = []
+    for k in range(2 * (N_RATE_CALLS - 1)):
+        c, out = ((cl, rates_mono) if k % 4 in (0, 3)
+                  else (scl, rates_dev))
+        t0 = time.time()
+        c.classify_batch(reads, block=BLOCK)
+        torch.cuda.synchronize()
+        out.append(n / (time.time() - t0))
+    cl.exact_fallback = True
+    scl.exact_fallback = True
+    rates, fallback = [], []
+    for _ in range(N_RATE_CALLS):
+        scl.stats = dict(n_reads=0, n_fallback=0)
+        t0 = time.time()
+        res_s = scl.classify_batch(reads, block=BLOCK)
+        torch.cuda.synchronize()
+        rates.append(n / (time.time() - t0))
+        fallback.append(scl.stats["n_fallback"] / max(1, scl.stats["n_reads"]))
+
+    # the sharded plain path on the same tables
+    sp = ShardedFastClassifier(scl.idxs, ref_ids=scl.ref_ids, device="cuda",
+                               plain=True, tables=scl.shards)
+    t0 = time.time()
+    res_s_plain = sp.classify_batch(reads, block=BLOCK)
+    torch.cuda.synchronize()
+    plain_rate = n / (time.time() - t0)
+    del sp
+    tup = lambda rs: [(r.name, r.ref_ID, r.direction, r.score, r.read_len,
+                       r.pos) for r in rs]
+    if tup(res_s_dev) != tup(res_s_plain):
+        bad = sum(x != y for x, y in zip(tup(res_s_dev), tup(res_s_plain)))
+        raise AssertionError(f"sharded kernel path and sharded plain path "
+                             f"differ on {bad} of {n} reads")
+
+    # agreement, the monolithic classifier's calls, truth
+    agree = sum(scl.tid_of(r.ref_ID) == t
+                for r, t in zip(res_s, native_tids)) / n
+    truth = [truth_tid(r[0]) for r in reads]
+    name = lambda names, r: names[r.ref_ID] if r.ref_ID >= 0 else None  # noqa: E731
+    mono = cl.idx.ref_names
+    differ = [r.name for r, m in zip(res_s, res)
+              if name(scl.ref_names, r) != name(mono, m)]
+    differ_dev = sum(name(scl.ref_names, r) != name(mono, m)
+                     for r, m in zip(res_s_dev, res_dev))
+
+    # where the time goes: the first chunk of the narrowest bucket, stage
+    # by stage on each shard (stage 0 is the sharded chunk's one call),
+    # the sharded chunk whole, and one profiled pure-device batch
+    W, (packed, lens, n_chunk) = min(first_chunks(scl, reads).items())
+    stages = {}
+    for s, (fm, ek_s, loc, ra) in enumerate(scl.shards):
+        one = SimpleNamespace(fm=fm, ek=ek_s, loc=loc, ra=ra,
+                              device=scl.device, _full=build_full(
+                                  ek.lek, ek.single_base_max, ek.mask_bits,
+                                  20, ek.n_words0))
+        fns, _ = stage_calls(one, packed, lens, KERNEL_OPS)
+        for st, fn in fns.items():
+            if st == "0 unpack" and s > 0:
+                continue
+            row = checked_device_ms(fn)
+            del row["rows"]
+            stages[st if st == "0 unpack" else f"shard {s}: {st}"] = dict(
+                span_ms=cuda_ms(fn), **row)
+    p = torch.from_numpy(packed).to(scl.device)
+    ln = torch.from_numpy(lens).to(scl.device)
+    fused = lambda: scl._full(scl.shards, scl.maps, scl.map_off,  # noqa: E731
+                              len(scl.ref_names), p, ln)
+    row = checked_device_ms(fused)
+    del row["rows"]
+    stages["sharded chunk (fused)"] = dict(span_ms=cuda_ms(fused), **row)
+    scl.exact_fallback = False
+    t0 = time.time()
+    batch = checked_device_ms(lambda: scl.classify_batch(reads, block=BLOCK),
+                              n=1)
+    wall_ms = (time.time() - t0) * 1e3  # one call unprofiled, one profiled
+    scl.exact_fallback = True
+    ev = batch.pop("rows")
+    busy = batch["device_ms"]
+    rows = [e for e in ev if "shard_merge_kernel" in e.key]
+    m_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    m_n = sum(e.count for e in rows)
+    merge.update(launches=launches["shard_merge"],
+                 path_ms=m_ms / max(1, m_n))
+    summary = dict(
+        card=card, reads=n, shards=shards, n_shards=N_SHARDS, block=BLOCK,
+        build_s=build_s, init_s=init_s, chunks=chunks, launches=launches,
+        device_reads_per_s=spread(rates_dev),
+        monolithic_device_reads_per_s_in_turns=spread(rates_mono),
+        e2e_reads_per_s=spread(rates),
+        fallback_fraction=fallback, plain_device_reads_per_s=plain_rate,
+        agreement_vs_native=agree,
+        truth_accuracy=sum(scl.tid_of(r.ref_ID) == t
+                           for r, t in zip(res_s, truth)) / n,
+        truth_accuracy_device_only=sum(scl.tid_of(r.ref_ID) == t
+                                       for r, t in zip(res_s_dev, truth)) / n,
+        differ_from_monolithic=len(differ),
+        differ_from_monolithic_examples=differ[:10],
+        differ_from_monolithic_device_only=differ_dev,
+        stages_first_chunk=dict(W=W, reads=n_chunk, stages=stages),
+        batch=dict(batch, device_busy_share=None if busy is None else
+                   busy / (1e3 * n / spread(rates_dev)["median"]),
+                   wall_ms_two_calls=wall_ms, merge_ms=m_ms,
+                   merge_launches=m_n),
+        merge=merge)
+    if agree < AGREE_MIN:
+        raise AssertionError(f"sharded path: agreement with native "
+                             f"{agree:.4f} < {AGREE_MIN}")
+    del scl
+    return summary
+
+
+def make_data() -> tuple[str, str, str]:
+    """(community FASTA, reads FASTQ, index directory) of the bench data,
+    made once under CACHE by bench.prepare in a child process."""
     code = ("import json, sys, bench\n"
             "bench.CACHE, bench.SCALE_BP, bench.N_READS = sys.argv[1], "
             "int(float(sys.argv[2])), int(sys.argv[3])\n"
@@ -916,8 +1239,8 @@ def make_data() -> tuple[str, str]:
     if p.returncode != 0:
         raise RuntimeError(f"bench.prepare failed:\n{p.stderr[-4000:]}")
     log(p.stderr.strip())
-    _fa, fq, idx_dir = json.loads(p.stdout.strip().splitlines()[-1])
-    return fq, idx_dir
+    fa, fq, idx_dir = json.loads(p.stdout.strip().splitlines()[-1])
+    return fa, fq, idx_dir
 
 
 def truth_tid(name: str) -> int:
@@ -925,9 +1248,10 @@ def truth_tid(name: str) -> int:
     return int(name.split("_")[1].split(".")[0])
 
 
-def agreement(cl, reads, res) -> float:
-    """Share of reads whose taxon equals the native engine's primary hit's
-    (the logic of bench.check_accuracy over all reads)."""
+def agreement(cl, reads, res) -> tuple[float, list]:
+    """(share of reads whose taxon equals the native engine's primary
+    hit's, the native taxa): the logic of bench.check_accuracy over all
+    reads."""
     from desamba_tpu_torch.engine.native import NativeClassifier
 
     nat = NativeClassifier(cl.idx, n_threads=os.cpu_count() or 1)
@@ -941,7 +1265,7 @@ def agreement(cl, reads, res) -> float:
     acc_n = sum(t == truth_tid(r[0]) for r, t in zip(reads, nt)) / len(reads)
     log(f"smoke: native engine {len(reads)} reads in {dt:.1f} s; "
         f"agreement {agree:.4f}, native truth accuracy {acc_n:.4f}")
-    return agree
+    return agree, nt
 
 
 def main() -> int:
@@ -984,7 +1308,7 @@ def main() -> int:
     from desamba_tpu_torch.io.fastx import read_fastx
 
     t0 = time.time()
-    fq, idx_dir = make_data()
+    fa, fq, idx_dir = make_data()
     t_data = time.time() - t0
     t0 = time.time()
     idx = load_index(idx_dir)
@@ -1002,7 +1326,8 @@ def main() -> int:
     t0 = time.time()
     gidx = load_index(make_golden_index())
     t_golden = time.time() - t0
-    vote_checks = check_vote(cl, reads, build_tables(gidx, "cpu"))
+    vote_checks, full_checks = check_vote(cl, reads,
+                                          build_tables(gidx, "cpu"))
     t0 = time.time()
     cl.classify_batch(reads, block=BLOCK)
     log(f"smoke: warm pass {time.time() - t0:.1f} s")
@@ -1047,7 +1372,7 @@ def main() -> int:
         torch.cuda.synchronize()
         rates_dev.append(n / (time.time() - t0))
     cl.exact_fallback = True
-    agree = agreement(cl, reads, res)
+    agree, native_tids = agreement(cl, reads, res)
     truth = [truth_tid(r[0]) for r in reads]
     acc = sum(cl.tid_of(r.ref_ID) == t for r, t in zip(res, truth)) / n
     acc_dev = sum(cl.tid_of(r.ref_ID) == t
@@ -1086,11 +1411,28 @@ def main() -> int:
         bad = sum(x != y for x, y in zip(tup(res_dev), tup(res_plain)))
         raise AssertionError(f"kernel path and plain path differ on {bad} "
                              f"of {n} reads")
+    # every read above LONG_WIDTH through _classify_long (segments of
+    # LONG_WIDTH at W = LONG_WIDTH), kernels against plain versions
+    long_k, long_p = (FastClassifier(
+        idx, device="cuda", plain=pl, exact_fallback=False,
+        max_width=LONG_WIDTH, tables=(cl.fm, cl.ek, cl.loc, cl.ra))
+        for pl in (False, True))
+    res_long = long_k.classify_batch(reads, block=BLOCK)
+    if tup(res_long) != tup(long_p.classify_batch(reads, block=BLOCK)):
+        raise AssertionError(f"max_width={LONG_WIDTH}: kernel path and "
+                             f"plain path differ")
+    n_long = sum(len(r[1]) > LONG_WIDTH for r in reads)
+    del long_k, long_p
     print("kernel path == plain path on all reads; plain_path "
           + json.dumps(dict(card=card, reads=n,
                             device_reads_per_s=rates_plain,
-                            device_reads_per_s_best=max(rates_plain))),
+                            device_reads_per_s_best=max(rates_plain),
+                            whole_pipeline_other_widths=full_checks,
+                            long_reads_equal=dict(
+                                max_width=LONG_WIDTH, long_reads=n_long))),
           flush=True)
+    if n_long == 0:
+        raise AssertionError(f"no read is longer than {LONG_WIDTH}")
 
     # ---- phase 5: where the time goes
     tg = where_time_goes(cl, chunks, reads, card, checks["vote"])
@@ -1137,6 +1479,13 @@ def main() -> int:
     rows += [dict(name=k, route="cuda", source=kernels.source_path(k),
                   replaces=REPLACES[k], **vc[k])
              for k in ("probe_reads", "row_walks_trace")]
+
+    # ---- phase 7: the genome-sharded classifier
+    sh = sharded_phase(cl, reads, fa, card, res, res_dev, native_tids)
+    print("sharded " + json.dumps(sh), flush=True)
+    rows.append(dict(name="shard_merge", route="cuda",
+                     source=kernels.source_path("shard_merge"),
+                     replaces=REPLACES["shard_merge"], **sh["merge"]))
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "desamba_tpu",
                                       "bench")]

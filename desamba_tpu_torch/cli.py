@@ -13,7 +13,7 @@ thread runs the device pipeline and writes results. `--engine tpu` writes
 the reference's SAM (-f SAM_FULL with each read's sequence and
 qualities), as `desamba_tpu.cli classify --engine tpu` does. A
 genome-sharded index directory (one holding shards.json) is refused: the
-port has no genome-sharded engine yet.
+port classifies on one through engine.sharded_fast, not the CLI yet.
 """
 from __future__ import annotations
 
@@ -149,8 +149,9 @@ def main(argv=None):
         if os.path.exists(os.path.join(a.index_dir, "shards.json")):
             show_mem = False
             print(f"{a.index_dir} is a genome-sharded index (shards.json): "
-                  "the genome-sharded engine is not ported yet (ROADMAP "
-                  "queue 1 item 6)", file=sys.stderr)
+                  "the CLI does not classify on one yet (ROADMAP queue 1 "
+                  "item 6; the API is engine.sharded_fast."
+                  "load_sharded_fast)", file=sys.stderr)
             return 2
         return cmd_classify(a)
     finally:

@@ -269,12 +269,19 @@ class FastClassifier:
         if tables is None:
             tables = build_tables(idx, self.device)
         self.fm, self.ek, self.loc, self.ra = tables
-        self.min_score = min_score
-        self.filter_min_length = filter_min_length
         self._full = build_full(
             self.ek.lek, self.ek.single_base_max, self.ek.mask_bits,
             min_match=20, nw0=self.ek.n_words0,
             ops=PLAIN_OPS if plain else KERNEL_OPS)
+        self._init_host(min_score, filter_min_length, exact_fallback,
+                        fallback_threads, max_width, amb_margin)
+
+    def _init_host(self, min_score, filter_min_length, exact_fallback,
+                   fallback_threads, max_width, amb_margin):
+        """The host side's settings and state: the filter thresholds, the
+        2-bit code table, the replay's settings and lock, the stats."""
+        self.min_score = min_score
+        self.filter_min_length = filter_min_length
         self._code = np.full(256, 1, np.uint8)
         for j, b in enumerate(b"ACGT"):
             self._code[b] = j
@@ -533,12 +540,16 @@ class FastClassifier:
         with self._replay_lock:
             return self._replay_inner(reads)
 
+    def _replay_engine(self):
+        """The exact engine of the replay: the native engine on the
+        index."""
+        from .native import NativeClassifier
+
+        return NativeClassifier(self.idx, n_threads=self._fallback_threads)
+
     def _replay_inner(self, reads) -> list[FastResult]:
         if self._native is None:
-            from .native import NativeClassifier
-
-            self._native = NativeClassifier(
-                self.idx, n_threads=self._fallback_threads)
+            self._native = self._replay_engine()
         out = []
         for rr in self._native.classify_batch(reads):
             prim = next((h for h in rr.hits if h.primary == 1), None)

@@ -2,21 +2,22 @@
 
 The engine is bit-exact with the reference classifier; the fast path
 replays the reads it cannot call unambiguously through it. Counterpart of
-desamba_tpu/engine/native.py, fed from the port's `HostIndex` and carrying
-only the hit fields the replay and the agreement check read. `native/` is
-a C++ library beside both packages; it is built with
-`make -C native libdesamba_host.so` when missing or older than its source.
+desamba_tpu/engine/native.py, fed from the port's `HostIndex`: each hit
+comes back as an oracle `Chain` with all twelve columns of the engine's
+record, as the sharded engine's merge and the SAM formatter read them.
+`native/` is
+a C++ library beside both packages; it is built with `make -C native
+libdesamba_host.so` when missing or older than its source.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
-from dataclasses import dataclass, field
-
 import numpy as np
 
 from ..constants import DEFAULT_FILTER_MIN_LENGTH, DEFAULT_MIN_SCORE
+from ..oracle.classify import Chain, ReadResult
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
@@ -83,23 +84,6 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-@dataclass
-class Hit:
-    ref_ID: int
-    direction: int
-    t_st: int
-    sum_score: int
-    primary: int
-
-
-@dataclass
-class NativeResult:
-    name: str
-    seq: bytes
-    hits: list = field(default_factory=list)
-    aborted: bool = False
-
-
 class NativeClassifier:
     """Batch classifier backed by the C++ engine, over `n_threads` striped
     workers (deterministic for a given thread count)."""
@@ -160,10 +144,11 @@ class NativeClassifier:
             self._lib.dsb_engine_destroy(h)
             self._handle = None
 
-    def classify_batch(self, reads) -> list[NativeResult]:
-        """reads: (name, seq, qual) triples. Reads the engine aborts (where
-        the reference binary would crash) come back with no hits and
-        aborted=True."""
+    def classify_batch(self, reads) -> list[ReadResult]:
+        """reads: (name, seq, qual) triples. Returns a ReadResult a read,
+        its hits as Chains in the engine's order. Reads the engine aborts
+        (where the reference binary would crash) come back with no hits
+        and .aborted=True."""
         reads = list(reads)
         n = len(reads)
         buf = np.frombuffer(b"".join(r[1] for r in reads), dtype=np.uint8)
@@ -190,12 +175,17 @@ class NativeClassifier:
         self._lib.dsb_free(hits_p)
         out = []
         pos = 0
-        for i, (name, seq, _qual) in enumerate(reads):
-            # columns: ref_ID, direction, t_st, .., .., .., sum_score, ..,
-            # primary (classify_host.cpp, dsb_classify_batch)
-            out.append(NativeResult(name, seq, [
-                Hit(ref_ID=int(h[0]), direction=int(h[1]), t_st=int(h[2]),
-                    sum_score=int(h[6]), primary=int(h[8]))
-                for h in hits[pos : pos + int(nhits[i])]], bool(status[i])))
+        for i, (name, seq, qual) in enumerate(reads):
+            r = ReadResult(name=name, seq=seq, qual=qual or b"")
+            r.aborted = bool(status[i])
+            # columns as dsb_classify_batch writes them; q_t_dis is signed
+            r.hits = [Chain(ref_ID=int(h[0]), direction=int(h[1]),
+                            t_st=int(h[2]), t_ed=int(h[3]), q_st=int(h[4]),
+                            q_ed=int(h[5]), sum_score=int(h[6]),
+                            pri_index=int(h[7]), primary=int(h[8]),
+                            anchor_number=int(h[9]), indel=int(h[10]),
+                            q_t_dis=int(np.int32(h[11])))
+                      for h in hits[pos : pos + int(nhits[i])]]
             pos += int(nhits[i])
+            out.append(r)
         return out

@@ -65,6 +65,9 @@ KERNELS = {
     "combine": (
         "rescore.cu", "dsb_combine",
         [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P]),
+    # the genome-sharded classifier's (engine/sharded_fast.py)
+    "shard_merge": (
+        "merge.cu", "dsb_shard_merge", [_P, _I, _LL, _P, _P, _I, _P, _P]),
     # the validation engine's (engine/tpu_engine.py)
     "probe_reads": (
         "probe.cu", "dsb_probe_reads",

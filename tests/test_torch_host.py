@@ -157,8 +157,8 @@ def test_read_fastx_multiline_and_comments():
 
 # ------------------------------------------------------------- native --
 def test_native_binding_equals_jax(host_index, golden_oracle_index):
-    """The port's binding gives the JAX binding's hits (the fields the
-    replay and the agreement check read) on every golden read."""
+    """The port's binding gives the JAX binding's hits, all twelve columns
+    of the engine's record, on every golden read."""
     from desamba_tpu.engine.native import NativeClassifier as JNative
     from desamba_tpu.io.fastx import read_fastx
     from desamba_tpu_torch.engine.native import NativeClassifier
@@ -167,8 +167,9 @@ def test_native_binding_equals_jax(host_index, golden_oracle_index):
              for r in read_fastx(os.path.join(GOLD, "reads.fq"))]
     got = NativeClassifier(host_index, n_threads=2).classify_batch(reads)
     ref = JNative(golden_oracle_index, n_threads=2).classify_batch(reads)
-    fields = lambda h: (h.ref_ID, h.direction, h.t_st, h.sum_score,
-                        h.primary)
+    fields = lambda h: (h.ref_ID, h.direction, h.t_st, h.t_ed, h.q_st,
+                        h.q_ed, h.sum_score, h.pri_index, h.primary,
+                        h.anchor_number, h.indel, h.q_t_dis)
     assert len(got) == len(ref) == len(reads)
     for g, r in zip(got, ref):
         assert (g.name, g.seq, g.aborted) == (r.name, r.seq, r.aborted)
