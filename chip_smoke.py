@@ -84,10 +84,25 @@ Phases (any failure raises, and the script exits nonzero):
      the native engine (gated at 0.99), the reads called otherwise than by
      the monolithic classifier, truth accuracy; each stage's device time
      on the first chunk, shard by shard, and the batch's device time
+  8. the data-parallel classifier (parallel/, FastClassifier(mesh=...)):
+     the taxon-weight kernel (K13) against its plain version, exactly, on
+     tests/test_torch_taxon.taxon_cases, on the tids of phase 3's results
+     (max_tid = the largest + 2) and at NCBI's 2^22 taxids, timed with L2
+     evicted beside its bound and index_add_; one rank over NCCL (a
+     process group of this process alone) on phase 3's tables: the raw
+     [7, Bp] of each first chunk equal to one device's, launch counts set
+     to 0 just before a pure-device classify_batch and the taxon step and
+     read just after (every fast-path kernel and K13 must launch), the
+     results equal to phase 3's pure-device ones on every read, the
+     weights equal to a host bincount of the tids; the mesh path's and
+     the one-device path's pure-device reads/s in turns; then two ranks
+     over gloo on this one card (parallel.dryrun on the golden index, in
+     child processes), each of which must launch the kernels
 Prints a `kernels` JSON line (the fast path's eleven kernels, the
-validation engine's two, then the sharded path's merge; K1's row also
-carries its validation-path call, the vote's its checks at the other
-widths and on vote_cases), then {"ok": true, "device": {...}} last.
+validation engine's two, the sharded path's merge, then the data-parallel
+path's taxon weights; K1's row also carries its validation-path call, the
+vote's its checks at the other widths and on vote_cases), then
+{"ok": true, "device": {...}} last.
 Exits nonzero without a result when no CUDA device is visible or when
 run outside a checkout of the repository.
 """
@@ -123,6 +138,8 @@ N_VALIDATE = 768      # bench reads through the validation engine (phase 6)
 VOTE_WIDTHS = (4096, 8192)  # the vote's bench-read checks besides W = 2048
 VOTE_CASE_ROWS = 101  # read rows of each vote_cases check
 LONG_WIDTH = 2048     # phase 4's max_width: longer reads take _classify_long
+NCBI_MAX_TID = 1 << 22  # phase 8: NCBI taxonomy ids fit below 2^22
+PHASE8_BUDGET_S = 60  # phase 8's share of the smoke's time
 # the CUDA functions each fast-path kernel's wrapper launches (its
 # profiler rows), once each a call
 GLOBAL = {
@@ -159,6 +176,7 @@ REPLACES = {
     "probe_reads": "desamba_tpu/ops/ekmer.py:215",
     "row_walks_trace": "desamba_tpu/ops/fm.py:262",
     "shard_merge": "desamba_tpu/engine/sharded_fast.py:260",
+    "taxon_weights": "desamba_tpu/parallel/collectives.py:18",
 }
 
 
@@ -195,6 +213,12 @@ def software() -> dict:
         nvcc = "not found"
     return dict(python=sys.version.split()[0], torch=torch.__version__,
                 cuda=torch.version.cuda, triton=tri, nvcc=nvcc)
+
+
+def tup(rs) -> list:
+    """(name, ref_ID, direction, score, read_len, pos) of each FastResult."""
+    return [(r.name, r.ref_ID, r.direction, r.score, r.read_len, r.pos)
+            for r in rs]
 
 
 def max_abs_err(x, y) -> int:
@@ -1142,8 +1166,6 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
     torch.cuda.synchronize()
     plain_rate = n / (time.time() - t0)
     del sp
-    tup = lambda rs: [(r.name, r.ref_ID, r.direction, r.score, r.read_len,
-                       r.pos) for r in rs]
     if tup(res_s_dev) != tup(res_s_plain):
         bad = sum(x != y for x, y in zip(tup(res_s_dev), tup(res_s_plain)))
         raise AssertionError(f"sharded kernel path and sharded plain path "
@@ -1224,6 +1246,172 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
                              f"{agree:.4f} < {AGREE_MIN}")
     del scl
     return summary
+
+
+def taxon_check(tids, weights, max_tid: int, timed: bool,
+                want=None) -> dict:
+    """K13 against its plain version (and want, where given) on CUDA
+    copies of tids and weights (int32 numpy), exactly; timed: the
+    kernel's, the plain version's and index_add_'s cold ms (median of 20)
+    beside the bound (each tid and weight read once, each bin written
+    once)."""
+    import numpy as np
+    import torch
+
+    from desamba_tpu_torch.ops.taxon import taxon_weights, taxon_weights_plain
+
+    t = torch.from_numpy(tids).to("cuda")
+    w = torch.from_numpy(weights).to("cuda")
+    got = taxon_weights(t, w, max_tid)
+    ref = taxon_weights_plain(t, w, max_tid)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, ref)
+    shape = f"B={tids.size} max_tid={max_tid}"
+    if want is not None and not np.array_equal(got.cpu().numpy(), want):
+        err = max(err, 1)
+    if err != 0:
+        raise AssertionError(f"taxon_weights differs from its plain version "
+                             f"or the exact sum (max abs err {err}) at "
+                             f"{shape}")
+    out = dict(max_abs_err=err, shape=shape)
+    if timed:
+        clipped = t.clamp(0, max_tid - 1).to(torch.int64)
+        bound_ms, bound_by = bound_of(8 * tids.size + 4 * max_tid, 0)
+        out.update(
+            ms=cuda_ms(lambda: taxon_weights(t, w, max_tid), 20, cold=True),
+            plain_ms=cuda_ms(lambda: taxon_weights_plain(t, w, max_tid), 20,
+                             cold=True),
+            library_ms=cuda_ms(lambda: torch.zeros(
+                max_tid, dtype=torch.int32, device="cuda").index_add_(
+                    0, clipped, w), 20, cold=True),
+            bound_ms=bound_ms, bound_by=bound_by)
+        log(f"smoke: taxon_weights [{shape}] equal; kernel {out['ms']:.4f} "
+            f"ms, plain {out['plain_ms']:.4f} ms, index_add_ "
+            f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+    return out
+
+
+def data_parallel_phase(cl, idx, reads, chunks: dict, res_dev,
+                        gidx_dir: str) -> dict:
+    """Phase 8: K13 against its plain version; the data-parallel
+    classifier at one rank over NCCL on cl's tables, held to the one-device
+    path; two ranks over gloo on this card (parallel.dryrun, on the golden
+    index in gidx_dir). Returns the phase's summary with the taxon row's
+    checks under `taxon`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import FastClassifier
+    from desamba_tpu_torch.parallel import (init_distributed, make_mesh,
+                                            taxon_weight_step)
+    from desamba_tpu_torch.parallel.dryrun import free_port
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_taxon import expected, taxon_cases
+
+    t_phase = time.time()
+    n = len(reads)
+    cases = {}
+    for name, t, w, m in taxon_cases():
+        cases[name] = taxon_check(t, w.astype(np.int32), m, timed=False,
+                                  want=expected(t, w, m))
+    tids = np.array([cl.tid_of(r.ref_ID) for r in res_dev], np.int32)
+    ones = np.ones(n, np.int32)
+    max_tid = int(tids.max()) + 2
+    main = taxon_check(tids, ones, max_tid, timed=True)
+    ncbi = taxon_check(tids, ones, NCBI_MAX_TID, timed=True)
+
+    # one rank over NCCL: this process is the whole group
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh(device="cuda")
+        mcl = FastClassifier(idx, mesh=mesh, exact_fallback=False,
+                             tables=(cl.fm, cl.ek, cl.loc, cl.ra))
+        for W, (packed, lens, _) in chunks.items():
+            got = np.asarray(mcl._run_mesh(packed, lens))
+            ref = np.asarray(cl._run(packed, lens))
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"_run_mesh at W={W} differs from one "
+                                     f"device's _run on "
+                                     f"{int((got != ref).any(0).sum())} rows")
+        kernels.reset_launches()
+        res_m = mcl.classify_batch(reads, block=BLOCK)
+        tids_m = np.array([mcl.tid_of(r.ref_ID) for r in res_m], np.int32)
+        wts = taxon_weight_step(mesh, max_tid)(tids_m, ones).cpu().numpy()
+        torch.cuda.synchronize()
+        launches = {k: kernels.launches[k]
+                    for k in (*FAST_KERNELS, "taxon_weights")}
+        if not all(launches.values()):
+            raise AssertionError(f"a kernel of the mesh path was not "
+                                 f"launched: {launches}")
+        if tup(res_m) != tup(res_dev):
+            bad = sum(x != y for x, y in zip(tup(res_m), tup(res_dev)))
+            raise AssertionError(f"the mesh path differs from one device's "
+                                 f"on {bad} of {n} reads")
+        if not (np.array_equal(wts, np.bincount(tids_m, minlength=max_tid))
+                and int(wts.sum()) == n):
+            raise AssertionError(f"taxon weights {wts.sum()} differ from "
+                                 "the host bincount")
+        # pure-device reads/s in turns: one device, mesh, mesh, one device
+        was = cl.exact_fallback
+        cl.exact_fallback = False
+        rates = {"one_device": [], "mesh_nccl_1": []}
+        try:
+            for key in ("one_device", "mesh_nccl_1", "mesh_nccl_1",
+                        "one_device"):
+                c = cl if key == "one_device" else mcl
+                t0 = time.time()
+                c.classify_batch(reads, block=BLOCK)
+                torch.cuda.synchronize()
+                rates[key].append(n / (time.time() - t0))
+        finally:
+            cl.exact_fallback = was
+        backend = dist.get_backend()
+        del mcl
+    finally:
+        dist.destroy_process_group()
+    t_nccl = time.time() - t_phase
+    log(f"smoke: mesh over {backend} (1 rank) == one device on all {n} "
+        f"reads; reads/s one device {rates['one_device']}, mesh "
+        f"{rates['mesh_nccl_1']}")
+
+    # two ranks over gloo on this one card
+    t0 = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "desamba_tpu_torch.parallel.dryrun",
+         "--nproc", "2", "--device", "cuda", "--backend", "gloo", "--index",
+         gidx_dir, "--timeout", "150"], cwd=ROOT, capture_output=True,
+        text=True, timeout=170)
+    if p.returncode != 0:
+        raise RuntimeError(f"parallel.dryrun --nproc 2 failed "
+                           f"({p.returncode}):\n{p.stderr[-4000:]}")
+    rank_launches = [json.loads(ln.split(" launches ", 1)[1])
+                     for ln in p.stdout.splitlines() if " launches " in ln]
+    ok = [ln for ln in p.stdout.splitlines()
+          if ln.startswith("dryrun_multichip: ok on 2 processes")]
+    if len(rank_launches) != 2 or not all(
+            sum(r.values()) and r.get("taxon_weights") for r in rank_launches):
+        raise AssertionError(f"a rank launched no kernel: {rank_launches}")
+    if len(ok) != 1:
+        raise AssertionError(f"no ok line from the dryrun: {p.stdout}")
+    log(f"smoke: {ok[0]}")
+    secs = time.time() - t_phase
+    log(f"smoke: phase 8 took {secs:.1f} s (budget {PHASE8_BUDGET_S} s)")
+    return dict(
+        taxon=dict(main, launches=launches["taxon_weights"],
+                   other_calls=dict(ncbi=ncbi, taxon_cases=cases)),
+        mesh_nccl_world1=dict(
+            backend=backend, reads=n, launches=launches,
+            equal_to_one_device=True, raw_chunks_equal=sorted(chunks),
+            taxon_total=int(wts.sum()), max_tid=max_tid,
+            device_reads_per_s=rates, seconds=t_nccl),
+        gloo_world2_one_card=dict(
+            ok_line=ok[0], rank_launches=rank_launches,
+            seconds=time.time() - t0),
+        seconds=secs)
 
 
 def make_data() -> tuple[str, str, str]:
@@ -1324,7 +1512,8 @@ def main() -> int:
     chunks = first_chunks(cl, reads)
     checks = check_kernels(kernel_inputs(cl, *chunks[min(chunks)][:2]))
     t0 = time.time()
-    gidx = load_index(make_golden_index())
+    gidx_dir = make_golden_index()
+    gidx = load_index(gidx_dir)
     t_golden = time.time() - t0
     vote_checks, full_checks = check_vote(cl, reads,
                                           build_tables(gidx, "cpu"))
@@ -1405,8 +1594,6 @@ def main() -> int:
         res_plain = plain_cl.classify_batch(reads, block=BLOCK)
         torch.cuda.synchronize()
         rates_plain.append(n / (time.time() - t0))
-    tup = lambda rs: [(r.name, r.ref_ID, r.direction, r.score, r.read_len,
-                       r.pos) for r in rs]
     if tup(res_dev) != tup(res_plain):
         bad = sum(x != y for x, y in zip(tup(res_dev), tup(res_plain)))
         raise AssertionError(f"kernel path and plain path differ on {bad} "
@@ -1486,6 +1673,14 @@ def main() -> int:
     rows.append(dict(name="shard_merge", route="cuda",
                      source=kernels.source_path("shard_merge"),
                      replaces=REPLACES["shard_merge"], **sh["merge"]))
+
+    # ---- phase 8: the data-parallel classifier and K13
+    dp = data_parallel_phase(cl, idx, reads, chunks, res_dev, gidx_dir)
+    print("data_parallel " + json.dumps(
+        {k: v for k, v in dp.items() if k != "taxon"}), flush=True)
+    rows.append(dict(name="taxon_weights", route="cuda",
+                     source=kernels.source_path("taxon_weights"),
+                     replaces=REPLACES["taxon_weights"], **dp["taxon"]))
     foreign = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "desamba_tpu",
                                       "bench")]

@@ -241,6 +241,13 @@ class FastClassifier:
     device the hand kernels run; on the CPU, their plain versions.
     plain=True runs the plain versions on any device.
 
+    With `mesh` (parallel.make_mesh: the ranks of a process group), each
+    chunk's rows are split over the mesh's ranks: every rank encodes the
+    same chunk, runs its own block of rows on mesh.device (the default
+    device; any other raises) and gathers the others' results, so every
+    rank returns the whole batch's results. Every rank calls
+    classify_batch on the same reads.
+
     `idx` is a HostIndex (index.loader.load_index). Reads are called by
     the reference's final-filter thresholds on the stage-4 band score.
     With exact_fallback=True, reads the device pipeline cannot call
@@ -249,18 +256,26 @@ class FastClassifier:
     bit-exact native engine, as the reference splits fast_classify and
     slow_classify (cly.c:3098-3122); .stats counts the replays."""
 
+    mesh = None  # the data mesh, where __init__ is given one
+
     def __init__(self, idx, min_score: int = DEFAULT_MIN_SCORE,
                  filter_min_length: int = DEFAULT_FILTER_MIN_LENGTH,
                  mesh=None, exact_fallback: bool = True,
                  fallback_threads: int | None = None,
                  max_width: int = 8192, amb_margin: int | None = None, *,
-                 device, plain: bool = False, tables=None):
+                 device=None, plain: bool = False, tables=None):
         from ..convert import build_tables
+        from ..parallel.mesh import as_device
 
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU data parallel is not ported yet (ROADMAP queue 1 "
-                "item 5)")
+            if device is None:
+                device = mesh.device
+            elif as_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"device {mesh.device}")
+        elif device is None:
+            raise TypeError("FastClassifier needs a device (or a mesh)")
+        self.mesh = mesh
         if amb_margin is None:
             amb_margin = (AMB_MARGIN if idx.L < AMB_LARGE_L
                           else AMB_MARGIN_LARGE)
@@ -301,6 +316,24 @@ class FastClassifier:
         ln = torch.from_numpy(lens).to(self.device)
         return DeviceResult(self._full(self.fm, self.loc, self.ra,
                                        self.ek.w01, p, ln))
+
+    def _run_mesh(self, packed, lens):
+        """The chunk's rows split over the mesh's ranks: this rank runs
+        rows [rank * Bp / n, (rank + 1) * Bp / n) and gathers every rank's
+        [7, Bl] block in rank order, which is read order. Each rank
+        derives both strands of its own rows, so the blocks join as they
+        are (JAX's shard_map over 'data', where the stage-2 caps also
+        scale with a shard's rows). The gather runs on the stream the
+        pipeline ran on."""
+        import torch.distributed as dist
+
+        n, r = self.mesh.n_data, self.mesh.rank
+        Bp = packed.shape[0]
+        lo, hi = r * Bp // n, (r + 1) * Bp // n
+        mine = self._run(packed[lo:hi], lens[lo:hi]).t
+        blocks = [torch.empty_like(mine) for _ in range(n)]
+        dist.all_gather(blocks, mine, group=self.mesh.group)
+        return DeviceResult(torch.cat(blocks, 1))
 
     # ------------------------------------------------------------ encode --
     def _encode(self, reads, W: int | None = None, Bp: int | None = None):
@@ -374,6 +407,8 @@ class FastClassifier:
                     sub = ids[s0 : s0 + block]
                     chunk = [reads[i] for i in sub]
                     Bp = block if len(sub) == block else _pow2(len(sub), 8)
+                    if self.mesh is not None:
+                        Bp += (-Bp) % self.mesh.n_data  # rows split evenly
                     handles, lens = self._dispatch_chunk(chunk, Wb, Bp)
                     pending.append((sub, chunk, lens, handles))
                     while len(pending) > 1:
@@ -422,6 +457,8 @@ class FastClassifier:
             sub = segs[c0 : c0 + block]
             chunk = [s[2] for s in sub]
             Bp = block if len(sub) == block else _pow2(len(sub), 8)
+            if self.mesh is not None:
+                Bp += (-Bp) % self.mesh.n_data
             handles, _lens = self._dispatch_chunk(chunk, Wb, Bp)
             pending.append((sub, handles))
             while len(pending) > 1:
@@ -493,6 +530,10 @@ class FastClassifier:
         """Encode and launch the device pipeline; returns (DeviceResult,
         lens) without waiting for the device."""
         packed, lens_p, lens = self._encode(reads, W=W, Bp=Bp)
+        if self.mesh is not None:
+            assert packed.shape[0] % self.mesh.n_data == 0, \
+                "the chunk's rows must split evenly over the mesh"
+            return self._run_mesh(packed, lens_p), lens
         return self._run(packed, lens_p), lens
 
     def _format(self, reads, lens, res):

@@ -68,6 +68,10 @@ KERNELS = {
     # the genome-sharded classifier's (engine/sharded_fast.py)
     "shard_merge": (
         "merge.cu", "dsb_shard_merge", [_P, _I, _LL, _P, _P, _I, _P, _P]),
+    # the data-parallel classifier's abundance weights
+    # (parallel/collectives.py)
+    "taxon_weights": (
+        "taxon.cu", "dsb_taxon_weights", [_P, _P, _LL, _I, _P, _P]),
     # the validation engine's (engine/tpu_engine.py)
     "probe_reads": (
         "probe.cu", "dsb_probe_reads",

@@ -272,9 +272,16 @@ def test_device_is_required(host_index):
         FastClassifier(host_index)
     cl = FastClassifier(host_index, device="cpu",
                         tables=(None, _FakeEk(), None, None))
-    assert cl.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        FastClassifier(host_index, device="cpu", mesh=object(),
+    assert cl.device == torch.device("cpu") and cl.mesh is None
+    # with a mesh, its device is the default and any other is refused
+    from desamba_tpu_torch.parallel import DataMesh
+
+    mesh = DataMesh(group=None, rank=0, n_data=1, device=torch.device("cpu"))
+    cl = FastClassifier(host_index, mesh=mesh,
+                        tables=(None, _FakeEk(), None, None))
+    assert cl.device == torch.device("cpu") and cl.mesh is mesh
+    with pytest.raises(ValueError):
+        FastClassifier(host_index, device="cuda:0", mesh=mesh,
                        tables=(None, _FakeEk(), None, None))
 
 
@@ -303,8 +310,8 @@ def test_cli_lines_match_jax_classifier(tmp_path, golden_index_dir, jax_cl):
     reads = _golden_reads(max_len=250)[:6]
     fq = _write_fq(tmp_path / "r.fq", reads)
     out = tmp_path / "out.txt"
-    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", "-o", str(out),
-             golden_index_dir, fq)
+    p = _cli("desamba_tpu_torch.cli", "--engine", "fast", "--device", "cpu",
+             "-o", str(out), golden_index_dir, fq)
     assert p.returncode == 0, p.stderr
     names = jax_cl.oi.ref_names
     exp = [f"{r.name}\t{names[r.ref_ID] if r.ref_ID >= 0 else '*'}\t"
@@ -357,8 +364,8 @@ def test_cli_stdout_and_stderr_match_jax_cli(tmp_path, golden_index_dir):
            _write_fq(tmp_path / "b.fq", reads[40:])]
     jp = _cli("desamba_tpu.cli", "--engine", "fast", "--timers",
               golden_index_dir, *fqs)
-    tp = _cli("desamba_tpu_torch.cli", "--device", "cpu", "--timers",
-              golden_index_dir, *fqs)
+    tp = _cli("desamba_tpu_torch.cli", "--engine", "fast", "--device", "cpu",
+              "--timers", golden_index_dir, *fqs)
     assert jp.returncode == 0, jp.stderr
     assert tp.returncode == 0, tp.stderr
     assert tp.stdout == jp.stdout and len(tp.stdout.splitlines()) == 72
@@ -377,8 +384,8 @@ def test_cli_profile_writes_a_trace(tmp_path, golden_index_dir):
     """--profile DIR leaves a torch.profiler trace in DIR and says where."""
     fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:3])
     prof = tmp_path / "prof"
-    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", "--profile",
-             str(prof), golden_index_dir, fq)
+    p = _cli("desamba_tpu_torch.cli", "--engine", "fast", "--device", "cpu",
+             "--profile", str(prof), golden_index_dir, fq)
     assert p.returncode == 0, p.stderr
     traces = list(prof.glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
@@ -386,19 +393,52 @@ def test_cli_profile_writes_a_trace(tmp_path, golden_index_dir):
     assert len(p.stdout.splitlines()) == 3
 
 
-def test_cli_refuses_a_sharded_index(tmp_path, golden_index_dir):
-    """A directory with shards.json exits nonzero with one line that names
-    the missing genome-sharded engine, before anything is loaded."""
-    d = tmp_path / "sharded"
-    d.mkdir()
-    (d / "shards.json").write_text("{}")
-    fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:1])
-    p = _cli("desamba_tpu_torch.cli", "--device", "cpu", str(d), fq)
-    assert p.returncode != 0
-    lines = p.stderr.splitlines()
-    assert len(lines) == 1 and "genome-sharded" in lines[0], p.stderr
-    assert "Traceback" not in p.stderr and "deSAMBA.bwt" not in p.stderr
-    assert p.stdout == ""
+@pytest.mark.parametrize("args", [(), ("-f", "SAM_FULL"), ("-f", "DES"),
+                                  ("-f", "DES_FULL"), ("-t", "1")],
+                         ids=["SAM", "SAM_FULL", "DES", "DES_FULL", "t1"])
+def test_cli_native_default_equals_jax_cli(golden_index_dir, args):
+    """With no --engine both CLIs run the native engine: the same stdout
+    byte for byte in each -f format, and with one thread as with the
+    default four (which equal a single-threaded run); stderr with the
+    same lines in the same order."""
+    fq = os.path.join(GOLD, "reads.fq")
+    jp = _cli("desamba_tpu.cli", *args, golden_index_dir, fq)
+    tp = _cli("desamba_tpu_torch.cli", *args, golden_index_dir, fq)
+    assert jp.returncode == 0, jp.stderr
+    assert tp.returncode == 0, tp.stderr
+    assert tp.stdout == jp.stdout and tp.stdout
+    assert _stderr_shape(tp.stderr) == _stderr_shape(jp.stderr)
+    assert [k for k, _ in _stderr_shape(tp.stderr)] == [
+        "processing", "processed", "cpu", "maxmem", "blank"]
+    if args == ("-t", "1"):
+        assert tp.stdout == _cli("desamba_tpu_torch.cli", golden_index_dir,
+                                 fq).stdout
+    elif not args:
+        assert tp.stdout == open(os.path.join(GOLD, "classify.sam")).read()
+
+
+def test_cli_sends_a_sharded_index_to_the_sharded_engine(tmp_path):
+    """A directory with shards.json (the golden references in 2 genome
+    shards, built under pytest's temporary directory) goes to the host
+    ShardedEngine whatever --engine says, as in the JAX CLI: the same SAM
+    on stdout, and the same stderr lines."""
+    from desamba_tpu.parallel.shard_index import build_sharded_index
+
+    root = str(tmp_path / "shards2")
+    build_sharded_index(os.path.join(GOLD, "ref.fa"), root, n_shards=2,
+                        n_jobs=1)
+    fq = os.path.join(GOLD, "reads.fq")
+    jp = _cli("desamba_tpu.cli", root, fq)
+    assert jp.returncode == 0, jp.stderr
+    assert len(jp.stdout.splitlines()) >= 72
+    for args in ((), ("--engine", "fast", "--device", "cpu"),
+                 ("-f", "SAM_FULL")):
+        tp = _cli("desamba_tpu_torch.cli", *args, root, fq)
+        assert tp.returncode == 0, tp.stderr
+        want = jp.stdout if not args or args[0] != "-f" else _cli(
+            "desamba_tpu.cli", *args, root, fq).stdout
+        assert tp.stdout == want, args
+        assert _stderr_shape(tp.stderr) == _stderr_shape(jp.stderr)
 
 
 def test_cli_reports_peak_memory_after_a_failure(tmp_path):
@@ -409,7 +449,8 @@ def test_cli_reports_peak_memory_after_a_failure(tmp_path):
     fq = _write_fq(tmp_path / "r.fq", _golden_reads(max_len=250)[:1])
     maxmem = re.compile(_STDERR_LINES[4][1], re.M)
     for args in (("desamba_tpu.cli", "--engine", "fast"),
-                 ("desamba_tpu_torch.cli", "--device", "cpu")):
+                 ("desamba_tpu_torch.cli", "--engine", "fast", "--device",
+                  "cpu")):
         p = _cli(*args, str(d), fq)
         assert p.returncode != 0, args
         assert maxmem.search(p.stderr), (args, p.stderr)

@@ -125,7 +125,7 @@ def test_port_imports_no_jax():
         "'desamba_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert len(mods) >= 31, mods\n"
+        "assert len(mods) >= 41, mods\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN}]\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
