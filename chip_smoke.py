@@ -32,8 +32,15 @@ Phases (any failure raises, and the script exits nonzero):
      on tests/test_torch_kernels.vote_cases (on the golden index, built
      by a child process) at every width bucket up to 8192; the whole
      pipeline (build_full's [7, Bp]) of the kernels against that of the
-     plain versions on those W = 4096 and 8192 encodings; then one warm
-     classify_batch
+     plain versions on those W = 4096 and 8192 encodings; the band scorer
+     (K8) at every band the classifier makes: on the first chunk of each
+     width bucket (W = 2048, K = 144; W = 3072, K = 208) and on the W =
+     4096 and 8192 encodings (K = 272), one launch a call, timed cold
+     beside the bound of its bit-plane formulation (band_ops) and the
+     SWAR formulation's 25-op bound, its offset loop's SASS instructions
+     a (read word, offset) (band_sass, cuobjdump), and on
+     tests/test_torch_band_score.band_cases at each band, every case
+     reached; then one warm classify_batch
   3. the main path: launch counts set to 0, classify_batch three times
      (end-to-end reads/s, fallback fraction), counts read, and every
      kernel must have launched (those of stages 0, 1, 3 and 4 and
@@ -85,10 +92,16 @@ Phases (any failure raises, and the script exits nonzero):
      the monolithic classifier, truth accuracy; each stage's device time
      on the first chunk, shard by shard, and the batch's device time
   8. the data-parallel classifier (parallel/, FastClassifier(mesh=...)):
-     the taxon-weight kernel (K13) against its plain version, exactly, on
+     the taxon-weight kernel (K13; these checks run after phase 4, where
+     torch.profiler still sees every kernel) against its plain version,
+     exactly, on
      tests/test_torch_taxon.taxon_cases, on the tids of phase 3's results
-     (max_tid = the largest + 2) and at NCBI's 2^22 taxids, timed with L2
-     evicted beside its bound and index_add_; one rank over NCCL (a
+     (max_tid = the largest + 2) and at NCBI's 2^22 taxids, one launch a
+     call, timed with L2 evicted beside its bound and index_add_, its
+     torch.profiler rows beside those of zeros + index_add_ (one kernel
+     row and no memset), and at 2^22 on 2^17 and 2^19 pairs, hot and
+     spread over the bins; K13's time on the mesh path (path_ms: CUDA
+     events around its call in the taxon step); one rank over NCCL (a
      process group of this process alone) on phase 3's tables: the raw
      [7, Bp] of each first chunk equal to one device's, launch counts set
      to 0 just before a pure-device classify_batch and the taxon step and
@@ -139,6 +152,7 @@ VOTE_WIDTHS = (4096, 8192)  # the vote's bench-read checks besides W = 2048
 VOTE_CASE_ROWS = 101  # read rows of each vote_cases check
 LONG_WIDTH = 2048     # phase 4's max_width: longer reads take _classify_long
 NCBI_MAX_TID = 1 << 22  # phase 8: NCBI taxonomy ids fit below 2^22
+BAND_RUN = 8          # csrc/band_score.cu kRun: plane words of one offset step
 PHASE8_BUDGET_S = 60  # phase 8's share of the smoke's time
 # the CUDA functions each fast-path kernel's wrapper launches (its
 # profiler rows), once each a call
@@ -489,10 +503,153 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
                     out[1].clamp(0, ra.ref_offset.shape[0] - 1)),
                 ref_c.numel() * 30 + out.shape[1] * 20)
     read_w, rlen, win_w, rel_lo, rel_hi, K = args
-    # ~25 int32 operations per (row, read word, band offset): the SWAR
-    # compare, masks and the 9-code run test
     return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
-            read_w.numel() * K * 25)
+            band_ops(read_w, rlen, rel_lo, rel_hi, K))
+
+
+def band_ops(read_w, rlen, rel_lo, rel_hi, K: int) -> int:
+    """int32 operations of the band scorer's bit-plane formulation
+    (csrc/band_score.cu) on these rows: per (row, 32-code read word, band
+    offset k) that the data needs, 11 = 2 funnel shifts of the window
+    planes + 2 LOP3s for the match word e (the read-valid mask folded in)
+    + 4 funnel shifts and 3 LOP3s for the 9-run test by tripling and the
+    OR into acc; plus 2 (a funnel shift of the window's valid plane, a
+    LOP3) for a word whose codes do not all meet valid window codes at k.
+    That is 5.5 a (row, 16-code read word, band offset) where no mask
+    bites (the SWAR formulation of PRs 2-18 counted ~25). A word is
+    needed at k when one of its positions q < rlen has q + k in [rel_lo,
+    rel_hi); other words are zero and cost nothing (the kernel's own
+    overheads, the halo word of each run, the loop and the staging, are
+    not counted)."""
+    import torch
+
+    W = 16 * read_w.shape[1]
+    k = torch.arange(K, device=read_w.device, dtype=torch.int64)[None, :]
+    rl = rlen.to(torch.int64).clamp(0, W)[:, None]
+    a = (rel_lo.to(torch.int64)[:, None] - k).clamp(min=0)  # [B, K]
+    b = torch.minimum(rel_hi.to(torch.int64)[:, None] - k, rl)
+    live = b > a
+    w_lo = a // 32
+    w_hi = torch.where(live, (b + 31) // 32, w_lo)
+    # fully valid words: 32 w >= rel_lo - k and 32 w + 32 <= rel_hi - k
+    f_lo = torch.maximum(w_lo, (rel_lo.to(torch.int64)[:, None] - k + 31)
+                         .div(32, rounding_mode="floor"))
+    f_hi = torch.minimum(w_hi, (rel_hi.to(torch.int64)[:, None] - k)
+                         .div(32, rounding_mode="floor"))
+    n_words = (w_hi - w_lo).clamp(min=0)
+    n_full = (f_hi - f_lo).clamp(min=0)
+    return int((11 * n_words + 2 * (n_words - n_full)).sum())
+
+
+def band_ops_swar(read_w, K: int) -> int:
+    """The bound's operation count of PRs 2-18, kept for comparison:
+    ~25 int32 operations per (row, read word, band offset), the SWAR
+    compare, masks and the 9-code run test of the JAX formulation."""
+    return read_w.numel() * K * 25
+
+
+def sass_loops(lib: str, func: str) -> list:
+    """The innermost loops of a CUDA function's SASS (cuobjdump -sass
+    of the library): for each, its instructions, the shortest path in
+    instructions from its head through its back branch (one iteration
+    that takes no side branch) and that path's opcodes. [] when the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil as sh
+
+    tool = sh.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return []
+    txt = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120).stdout
+    body, keep = [], False
+    for ln in txt.splitlines():
+        if "Function :" in ln:
+            keep = func in ln
+            continue
+        if keep:
+            body.append(ln)
+    ins, labels, pend = [], {}, []
+    for ln in body:
+        m = re.match(r"\s*(\.L\w+):", ln)
+        if m:
+            pend.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln)
+        if m:
+            addr = int(m.group(1), 16)
+            for lab in pend:
+                labels[lab] = addr
+            pend = []
+            text = m.group(2).strip()
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
+            ins.append((addr, op, text))
+    addrs = [a for a, _, _ in ins]
+
+    def target(text):
+        m = re.search(r"`\((\.L\w+)\)", text)
+        if m:
+            return labels.get(m.group(1))
+        m = re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+        return int(m.group(1), 16) if m else None
+
+    back = [(target(t), a) for a, op, t in ins if op.startswith("BRA")
+            and target(t) is not None and target(t) <= a]
+    inner = [(t, a) for t, a in back if not any(
+        (t2, a2) != (t, a) and t <= t2 and a2 <= a for t2, a2 in back)]
+    out = []
+    for t, a in inner:
+        lo, hi = addrs.index(t), addrs.index(a)
+        seg = ins[lo : hi + 1]
+        # shortest path over the loop's instructions (breadth first): a
+        # step to the next instruction (unless after an unconditional
+        # branch) or to a branch's target inside the loop
+        prev = {0: None}
+        queue = [0]
+        for i in queue:
+            if i == len(seg) - 1:
+                break
+            _, op, text = seg[i]
+            nxt = []
+            if not ((op.startswith("BRA") and not text.startswith("@"))
+                    or op == "EXIT"):
+                nxt.append(i + 1)
+            tg = target(text) if op.startswith("BRA") else None
+            if tg is not None and t < tg <= a:
+                nxt.append(addrs.index(tg) - lo)
+            for j in nxt:
+                if j not in prev:
+                    prev[j] = i
+                    queue.append(j)
+        path, i = [], len(seg) - 1 if len(seg) - 1 in prev else None
+        while i is not None:
+            path.append(seg[i][1].split(".")[0])
+            i = prev[i]
+        hist = lambda ops: {k: ops.count(k) for k in sorted(set(ops))}
+        out.append(dict(start=hex(t), end=hex(a), instructions=len(seg),
+                        shortest_iteration=len(path), opcodes=hist(path)))
+    return out
+
+
+def band_sass(lib: str) -> dict:
+    """The band scorer's offset loops in SASS: the innermost loops of
+    band_score_kernel whose one iteration holds an offset step (at least
+    4 funnel shifts a plane word of a run of BAND_RUN); the one with the
+    fewest instructions is the unmasked step, the other the masked. One
+    shortest iteration is one band offset over BAND_RUN 32-code plane
+    words and the halo; per (32-code word, offset) and per (16-code read
+    word, offset). "not measured" without cuobjdump."""
+    loops = [d for d in sass_loops(lib, "band_score_kernel")
+             if d["opcodes"].get("SHF", 0) >= 4 * BAND_RUN]
+    if not loops:
+        return dict(per_read_word_offset="not measured")
+    fast = min(loops, key=lambda d: d["shortest_iteration"])
+    slow = max(loops, key=lambda d: d["shortest_iteration"])
+    n = fast["shortest_iteration"]
+    return dict(per_read_word_offset=n / (2 * BAND_RUN),
+                per_plane_word_offset=n / BAND_RUN,
+                masked_per_read_word_offset=slow["shortest_iteration"]
+                / (2 * BAND_RUN), unmasked_loop=fast, masked_loop=slow)
 
 
 def bloom_sectors(w01, nw0: int, want, addr1, addr2) -> int:
@@ -701,7 +858,7 @@ def check_kernels(cap: dict) -> dict:
     return out
 
 
-def check_vote(cl, reads, gtabs) -> tuple[dict, dict]:
+def check_vote(cl, reads, gtabs) -> tuple[dict, dict, dict]:
     """The vote kernel against vote_plain beyond the W = 2048 chunk: on
     the first BLOCK bench reads encoded at each of VOTE_WIDTHS (the
     kernels' stages 0-2 and locate give its inputs), and on vote_cases
@@ -710,7 +867,7 @@ def check_vote(cl, reads, gtabs) -> tuple[dict, dict]:
     calls are timed as check_kernels times them. Also the whole pipeline
     (build_full's [7, BLOCK]) of the kernels against that of the plain
     versions on each VOTE_WIDTHS encoding. Returns (the vote's checks,
-    the pipeline's)."""
+    the pipeline's, {W: every kernel's first call on that encoding})."""
     import torch
 
     from desamba_tpu_torch.constants import REFPOS_PER_ANCHOR, _bucket
@@ -725,10 +882,11 @@ def check_vote(cl, reads, gtabs) -> tuple[dict, dict]:
     ek = cl.ek
     plain_full = build_full(ek.lek, ek.single_base_max, ek.mask_bits, 20,
                             ek.n_words0, PLAIN_OPS)
-    calls, full = {}, {}
+    calls, full, caps = {}, {}, {}
     for W in VOTE_WIDTHS:
         packed, lens, _ = cl._encode(reads[:BLOCK], W=W, Bp=BLOCK)
-        calls[f"W={W}"] = kernel_inputs(cl, packed, lens)["vote"][0]
+        caps[W] = kernel_inputs(cl, packed, lens)
+        calls[f"W={W}"] = caps[W]["vote"][0]
         # the whole pipeline (stages 0-4 and the pack), kernels against
         # plain versions, on the same encoding
         p = torch.from_numpy(packed).to(cl.device)
@@ -775,7 +933,77 @@ def check_vote(cl, reads, gtabs) -> tuple[dict, dict]:
             f"; kernel {out[key]['ms']:.4f} ms, plain "
             f"{out[key]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by})" if key.startswith("W=") else ""))
-    return out, full
+    return out, full, caps
+
+
+def check_band(cl, chunks: dict, caps: dict, sass: dict) -> dict:
+    """K8 against band_score_packed_plain at every band the classifier
+    makes beyond check_kernels' W = 2048 call (K = 144): its first call
+    on the first chunk of each other width bucket of the bench reads (W
+    = 3072, K = 208) and on the first BLOCK bench reads encoded at W = 4096
+    and 8192 (K = 272; caps: check_vote's captured calls), each timed
+    cold (kernel median of 20, plain of 5) beside the bound of the
+    bit-plane formulation (band_ops) and the SWAR formulation's 25-op
+    bound; and on tests/test_torch_band_score.band_cases at each (K, W)
+    of its BANDS and at (272, 8192), every case reached. Equal exactly, or
+    the run fails; one launch a call. sass: band_sass, logged beside the
+    times."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_band_score import (BANDS, band_args, band_cases,
+                                       check_band_coverage)
+
+    kern, plain = KERNEL_OPS["band_score_packed"], PLAIN_OPS[
+        "band_score_packed"]
+    calls = {}
+    for W in sorted(chunks)[1:]:
+        calls[f"W={W}"] = kernel_inputs(cl, *chunks[W][:2])[
+            "band_score_packed"][0]
+    for W, cap in sorted(caps.items()):
+        calls[f"W={W}"] = cap["band_score_packed"][0]
+    for K, W in (*BANDS, (272, 8192)):
+        calls[f"band_cases K={K} W={W}"] = band_args(band_cases(K, W),
+                                                     "cuda")
+    out = {}
+    for key, args in calls.items():
+        before = kernels.launches["band_score_packed"]
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        shape = (f"rows={args[0].shape[0]} W={16 * args[0].shape[1]} "
+                 f"K={args[5]}")
+        if err != 0 or kernels.launches["band_score_packed"] != before + 1:
+            raise AssertionError(f"band_score_packed ({key}): kernel "
+                                 f"differs from its plain version (max abs "
+                                 f"err {err}) at {shape}, or launched "
+                                 f"other than once")
+        out[key] = dict(max_abs_err=err, shape=shape)
+        if key.startswith("band_cases"):
+            K, W = (int(x.split("=")[1]) for x in key.split()[1:])
+            check_band_coverage(band_cases(K, W),
+                                {f: v.cpu() for f, v in got.items()})
+            log(f"smoke: band_score_packed ({key}) [{shape}] equal, every "
+                "case reached")
+            continue
+        bound_ms, bound_by = bound("band_score_packed", args, ref)
+        out[key].update(
+            ms=cuda_ms(lambda: kern(*args), 20, cold=True),
+            plain_ms=cuda_ms(lambda: plain(*args), 5, cold=True),
+            bound_ms=bound_ms, bound_by=bound_by,
+            bound_old_ms=bound_of(0, band_ops_swar(args[0], args[5]))[0])
+    for key, r in out.items():
+        if "ms" in r:
+            log(f"smoke: band_score_packed ({key}) [{r['shape']}] equal; "
+                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SWAR "
+                f"25-op bound {r['bound_old_ms']:.4f} ms; SASS "
+                f"{sass['per_read_word_offset']} instructions a (read "
+                "word, offset)")
+    return out
 
 
 def where_time_goes(cl, chunks: dict, reads, card: str,
@@ -1251,78 +1479,130 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
 def taxon_check(tids, weights, max_tid: int, timed: bool,
                 want=None) -> dict:
     """K13 against its plain version (and want, where given) on CUDA
-    copies of tids and weights (int32 numpy), exactly; timed: the
-    kernel's, the plain version's and index_add_'s cold ms (median of 20)
-    beside the bound (each tid and weight read once, each bin written
-    once)."""
+    copies of tids and weights (int32 numpy), exactly, one launch by the
+    count; timed: the kernel's, the plain version's and index_add_'s cold
+    ms (median of 20) beside the bound (each tid and weight read once,
+    each bin written once), and the kernel's torch.profiler rows beside
+    those of zeros + index_add_: one taxon_bins_kernel row and no
+    memset."""
     import numpy as np
     import torch
 
+    from desamba_tpu_torch import kernels
     from desamba_tpu_torch.ops.taxon import taxon_weights, taxon_weights_plain
 
     t = torch.from_numpy(tids).to("cuda")
     w = torch.from_numpy(weights).to("cuda")
+    before = kernels.launches["taxon_weights"]
     got = taxon_weights(t, w, max_tid)
+    n_launch = kernels.launches["taxon_weights"] - before
     ref = taxon_weights_plain(t, w, max_tid)
     torch.cuda.synchronize()
     err = max_abs_err(got, ref)
     shape = f"B={tids.size} max_tid={max_tid}"
     if want is not None and not np.array_equal(got.cpu().numpy(), want):
         err = max(err, 1)
-    if err != 0:
+    if err != 0 or n_launch != 1:
         raise AssertionError(f"taxon_weights differs from its plain version "
                              f"or the exact sum (max abs err {err}) at "
-                             f"{shape}")
+                             f"{shape}, or launched {n_launch} times")
     out = dict(max_abs_err=err, shape=shape)
     if timed:
         clipped = t.clamp(0, max_tid - 1).to(torch.int64)
         bound_ms, bound_by = bound_of(8 * tids.size + 4 * max_tid, 0)
+        lib = lambda: torch.zeros(max_tid, dtype=torch.int32,
+                                  device="cuda").index_add_(0, clipped, w)
         out.update(
             ms=cuda_ms(lambda: taxon_weights(t, w, max_tid), 20, cold=True),
             plain_ms=cuda_ms(lambda: taxon_weights_plain(t, w, max_tid), 20,
                              cold=True),
-            library_ms=cuda_ms(lambda: torch.zeros(
-                max_tid, dtype=torch.int32, device="cuda").index_add_(
-                    0, clipped, w), 20, cold=True),
+            library_ms=cuda_ms(lib, 20, cold=True),
             bound_ms=bound_ms, bound_by=bound_by)
-        log(f"smoke: taxon_weights [{shape}] equal; kernel {out['ms']:.4f} "
-            f"ms, plain {out['plain_ms']:.4f} ms, index_add_ "
-            f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        rows = lambda fn: [dict(kernel=e.key[:60], count=e.count,
+                                ms=e.self_device_time_total / 1e3)
+                           for e in device_rows(fn)]
+        for _ in range(3):  # the profiler has missed kernels (section 7)
+            kern = rows(lambda: taxon_weights(t, w, max_tid))
+            if any("taxon_" in r["kernel"] for r in kern):
+                break
+        named = [r for r in kern if "taxon_" in r["kernel"]]
+        memset = [r for r in kern if "memset" in r["kernel"].lower()]
+        if (len(named) != 1 or named[0]["count"] != 1
+                or "taxon_bins_kernel" not in named[0]["kernel"] or memset):
+            raise AssertionError(f"taxon_weights at {shape}: profiler rows "
+                                 f"{kern}, expected one taxon_bins_kernel "
+                                 "and no memset")
+        out.update(device_rows=kern,
+                   device_ms=named[0]["ms"],
+                   library_device_rows=rows(lib))
+        log(f"smoke: taxon_weights [{shape}] equal; kernel "
+            f"{out['ms']:.4f} ms (device {out['device_ms']:.4f} ms, "
+            f"{len(kern)} device rows), plain {out['plain_ms']:.4f} ms, "
+            f"index_add_ {out['library_ms']:.4f} ms (device rows "
+            f"{out['library_device_rows']}), bound {bound_ms:.4f} ms "
             f"({bound_by})")
     return out
 
 
+def taxon_phase(cl, res_dev) -> dict:
+    """K13's checks of phase 8, run before phase 5 (late in the smoke
+    torch.profiler has missed kernels, PERF.md section 7): against its
+    plain version on test_torch_taxon.taxon_cases and the exact sum; on
+    the tids of res_dev (max_tid = the largest + 2), at NCBI_MAX_TID, and
+    at NCBI_MAX_TID on 2^17 and 2^19 pairs far past a batch (phase 3's
+    tids repeated: hot bins; and tids spread over the bins, where
+    index_add_'s atomic scatter gains on the kernel's blocks, each of
+    which reads every pair), timed and profiled (taxon_check). Returns
+    the main check with the others under other_calls, and max_tid."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_taxon import expected, taxon_cases
+
+    cases = {}
+    for name, t, w, m in taxon_cases():
+        cases[name] = taxon_check(t, w.astype(np.int32), m, timed=False,
+                                  want=expected(t, w, m))
+    tids = np.array([cl.tid_of(r.ref_ID) for r in res_dev], np.int32)
+    ones = np.ones(tids.size, np.int32)
+    max_tid = int(tids.max()) + 2
+    main = taxon_check(tids, ones, max_tid, timed=True)
+    ncbi = taxon_check(tids, ones, NCBI_MAX_TID, timed=True)
+    rng = np.random.default_rng(0)
+    large = {f"B={B} {kind}": taxon_check(t.astype(np.int32),
+                                          np.ones(B, np.int32),
+                                          NCBI_MAX_TID, timed=True)
+             for B in (1 << 17, 1 << 19)
+             for kind, t in (("hot", np.resize(tids, B)),
+                             ("spread", rng.integers(0, NCBI_MAX_TID, B)))}
+    return dict(main, max_tid=max_tid, other_calls=dict(
+        ncbi=ncbi, large=large, taxon_cases=cases))
+
+
 def data_parallel_phase(cl, idx, reads, chunks: dict, res_dev,
-                        gidx_dir: str) -> dict:
-    """Phase 8: K13 against its plain version; the data-parallel
-    classifier at one rank over NCCL on cl's tables, held to the one-device
-    path; two ranks over gloo on this card (parallel.dryrun, on the golden
-    index in gidx_dir). Returns the phase's summary with the taxon row's
-    checks under `taxon`."""
+                        gidx_dir: str, taxon: dict) -> dict:
+    """Phase 8: the data-parallel classifier at one rank over NCCL on
+    cl's tables, held to the one-device path, with K13's time on that
+    path; two ranks over gloo on this card (parallel.dryrun, on the
+    golden index in gidx_dir). taxon: taxon_phase's checks, returned
+    under `taxon` with the mesh run's launches and the path time."""
+    import statistics
+
     import numpy as np
     import torch
     import torch.distributed as dist
 
     from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import FastClassifier
+    from desamba_tpu_torch.ops import taxon as taxon_mod
     from desamba_tpu_torch.parallel import (init_distributed, make_mesh,
                                             taxon_weight_step)
     from desamba_tpu_torch.parallel.dryrun import free_port
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from test_torch_taxon import expected, taxon_cases
-
     t_phase = time.time()
     n = len(reads)
-    cases = {}
-    for name, t, w, m in taxon_cases():
-        cases[name] = taxon_check(t, w.astype(np.int32), m, timed=False,
-                                  want=expected(t, w, m))
-    tids = np.array([cl.tid_of(r.ref_ID) for r in res_dev], np.int32)
     ones = np.ones(n, np.int32)
-    max_tid = int(tids.max()) + 2
-    main = taxon_check(tids, ones, max_tid, timed=True)
-    ncbi = taxon_check(tids, ones, NCBI_MAX_TID, timed=True)
+    max_tid = taxon["max_tid"]
 
     # one rank over NCCL: this process is the whole group
     init_distributed(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
@@ -1355,6 +1635,28 @@ def data_parallel_phase(cl, idx, reads, chunks: dict, res_dev,
                 and int(wts.sum()) == n):
             raise AssertionError(f"taxon weights {wts.sum()} differ from "
                                  "the host bincount")
+        # K13 on the path: CUDA events around its call in the taxon step
+        # (median of 10 steps, after one)
+        kern, ts = taxon_mod.taxon_weights, []
+
+        def timed(*args):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = kern(*args)
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+            return out
+
+        taxon_mod.taxon_weights = timed
+        try:
+            step = taxon_weight_step(mesh, max_tid)
+            for _ in range(11):
+                step(tids_m, ones)
+        finally:
+            taxon_mod.taxon_weights = kern
+        path_ms = statistics.median(ts[1:])
         # pure-device reads/s in turns: one device, mesh, mesh, one device
         was = cl.exact_fallback
         cl.exact_fallback = False
@@ -1401,8 +1703,8 @@ def data_parallel_phase(cl, idx, reads, chunks: dict, res_dev,
     secs = time.time() - t_phase
     log(f"smoke: phase 8 took {secs:.1f} s (budget {PHASE8_BUDGET_S} s)")
     return dict(
-        taxon=dict(main, launches=launches["taxon_weights"],
-                   other_calls=dict(ncbi=ncbi, taxon_cases=cases)),
+        taxon=dict({k: v for k, v in taxon.items() if k != "max_tid"},
+                   launches=launches["taxon_weights"], path_ms=path_ms),
         mesh_nccl_world1=dict(
             backend=backend, reads=n, launches=launches,
             equal_to_one_device=True, raw_chunks_equal=sorted(chunks),
@@ -1485,6 +1787,8 @@ def main() -> int:
         regs = [ln.strip() for ln in d["log"].splitlines()
                 if "registers" in ln]
         log(f"smoke: {name}: {' | '.join(regs) or d['log'][:200]}")
+    sass = band_sass(info["band_score_packed"]["path"])
+    print("band_score_packed SASS " + json.dumps(sass), flush=True)
     from desamba_tpu_torch.engine.native import ensure_built
 
     ensure_built()
@@ -1510,13 +1814,24 @@ def main() -> int:
           f"index load + tables on device {t_init:.1f} s", flush=True)
 
     chunks = first_chunks(cl, reads)
-    checks = check_kernels(kernel_inputs(cl, *chunks[min(chunks)][:2]))
+    cap = kernel_inputs(cl, *chunks[min(chunks)][:2])
+    checks = check_kernels(cap)
     t0 = time.time()
     gidx_dir = make_golden_index()
     gidx = load_index(gidx_dir)
     t_golden = time.time() - t0
-    vote_checks, full_checks = check_vote(cl, reads,
-                                          build_tables(gidx, "cpu"))
+    vote_checks, full_checks, caps = check_vote(cl, reads,
+                                                build_tables(gidx, "cpu"))
+    band_checks = check_band(cl, chunks, caps, sass)
+    k8_args = cap["band_score_packed"][0]
+    checks["band_score_packed"]["bound_old_ms"] = bound_of(
+        0, band_ops_swar(k8_args[0], k8_args[5]))[0]
+    log(f"smoke: band_score_packed (W={16 * k8_args[0].shape[1]}, first "
+        f"chunk): SWAR 25-op bound "
+        f"{checks['band_score_packed']['bound_old_ms']:.4f} ms; SASS "
+        f"{sass['per_read_word_offset']} instructions a (read word, "
+        "offset)")
+    del cap, caps, k8_args
     t0 = time.time()
     cl.classify_batch(reads, block=BLOCK)
     log(f"smoke: warm pass {time.time() - t0:.1f} s")
@@ -1621,6 +1936,9 @@ def main() -> int:
     if n_long == 0:
         raise AssertionError(f"no read is longer than {LONG_WIDTH}")
 
+    # K13's checks of phase 8, while torch.profiler sees every kernel
+    taxon = taxon_phase(cl, res_dev)
+
     # ---- phase 5: where the time goes
     tg = where_time_goes(cl, chunks, reads, card, checks["vote"])
     print("time " + json.dumps(tg), flush=True)
@@ -1663,6 +1981,9 @@ def main() -> int:
     rows[names.index("interval_search")]["validation_path"] = vc[
         "interval_search"]
     rows[names.index("vote")]["other_calls"] = vote_checks
+    k8 = rows[names.index("band_score_packed")]
+    k8.update(bound_old_ms=checks["band_score_packed"]["bound_old_ms"],
+              sass=sass, other_calls=band_checks)
     rows += [dict(name=k, route="cuda", source=kernels.source_path(k),
                   replaces=REPLACES[k], **vc[k])
              for k in ("probe_reads", "row_walks_trace")]
@@ -1675,7 +1996,8 @@ def main() -> int:
                      replaces=REPLACES["shard_merge"], **sh["merge"]))
 
     # ---- phase 8: the data-parallel classifier and K13
-    dp = data_parallel_phase(cl, idx, reads, chunks, res_dev, gidx_dir)
+    dp = data_parallel_phase(cl, idx, reads, chunks, res_dev, gidx_dir,
+                             taxon)
     print("data_parallel " + json.dumps(
         {k: v for k, v in dp.items() if k != "taxon"}), flush=True)
     rows.append(dict(name="taxon_weights", route="cuda",

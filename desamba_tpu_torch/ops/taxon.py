@@ -46,14 +46,17 @@ def taxon_weights(tids, weights, max_tid: int) -> torch.Tensor:
     if weights.dtype not in _INTEGER:
         raise ValueError(f"taxon_weights: weights dtype {weights.dtype}, "
                          "expected an integer type")
-    w = weights.to(I32)
+    w = weights if weights.dtype == I32 else weights.to(I32)
     kernels.check("weights", w, I32, tids.shape, dev)
     if not kernels.launch_device(tids):
         return taxon_weights_plain(tids, w, max_tid)
     out = torch.empty(max_tid, dtype=I32, device=dev)
-    with torch.cuda.device(dev):
-        kernels.call("taxon_weights", kernels.ptr(tids), kernels.ptr(w),
-                     tids.numel(), max_tid, kernels.ptr(out),
-                     kernels.stream(dev))
+    args = (kernels.ptr(tids), kernels.ptr(w), tids.numel(), max_tid,
+            kernels.ptr(out))
+    if dev.index == torch.cuda.current_device():
+        kernels.call("taxon_weights", *args, kernels.stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            kernels.call("taxon_weights", *args, kernels.stream(dev))
     kernels.launches["taxon_weights"] += 1
     return out

@@ -1032,7 +1032,8 @@ def test_row_walks_kernel(cuda, tables, n, W, cap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,W,K", [(1, 256, 16), (7, 512, 80),
-                                   (33, 2048, 144), (130, 3072, 208)])
+                                   (33, 2048, 144), (130, 3072, 208),
+                                   (65, 4096, 272), (17, 8192, 272)])
 def test_band_score_kernel(cuda, B, W, K):
     from desamba_tpu_torch.ops.matchblock import (band_score_packed,
                                                   band_score_packed_plain)
@@ -1063,6 +1064,31 @@ def test_band_score_kernel(cuda, B, W, K):
     for f in ("score", "q_st", "q_ed"):
         assert torch.equal(got[f], ref[f]), f
     assert int(got["score"].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,W", [(16, 512), (144, 2048), (208, 3072),
+                                 (272, 4096), (272, 8192)])
+def test_band_score_kernel_band_cases(cuda, K, W):
+    """The kernel on tests/test_torch_band_score.band_cases (runs of 8, 9
+    and 10 codes across word, plane-word and run boundaries, rlen and
+    rel_lo / rel_hi cuts at every shift, fully invalid rows), one launch:
+    equal to the plain version, and every case reached."""
+    from test_torch_band_score import band_args, band_cases, check_band_coverage
+
+    from desamba_tpu_torch.ops.matchblock import (band_score_packed,
+                                                  band_score_packed_plain)
+
+    case = band_cases(K, W)
+    args = band_args(case, cuda)
+    before = kernels.launches["band_score_packed"]
+    got = band_score_packed(*args)
+    ref = band_score_packed_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["band_score_packed"] == before + 1
+    for f in ("score", "q_st", "q_ed"):
+        assert torch.equal(got[f], ref[f]), f
+    check_band_coverage(case, {f: v.cpu() for f, v in got.items()})
 
 
 @pytest.mark.cuda

@@ -160,6 +160,42 @@ def test_taxon_kernel_cases(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("max_tid", [100_106, NCBI_MAX_TID])
+@pytest.mark.parametrize("B", [1 << 16, 1 << 19])
+def test_taxon_kernel_large_batch(cuda, B, max_tid):
+    """Far past a batch's few thousand pairs (every block of the kernel
+    reads them all): exact, one launch by the count, one taxon_bins_kernel
+    row and no memset in the profile. Hot bins (most pairs on 90 tids)
+    and a bin that wraps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(B)
+    t = rng.integers(-5, max_tid + 5, B).astype(np.int32)
+    t[: B // 2] = rng.integers(0, 90, B // 2) * (max_tid // 100)
+    w = rng.integers(-3, 9, B).astype(np.int32)
+    w[:3], t[:3] = 2**30, 7          # bin 7 sums past 2^31 and wraps
+    tt, tw = torch.from_numpy(t).to(cuda), torch.from_numpy(w).to(cuda)
+    taxon_weights(tt, tw, max_tid)
+    torch.cuda.synchronize()
+    for _ in range(3):  # torch.profiler at times reports no kernel row
+        before = kernels.launches["taxon_weights"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = taxon_weights(tt, tw, max_tid)
+            torch.cuda.synchronize()
+        assert kernels.launches["taxon_weights"] == before + 1
+        assert np.array_equal(got.cpu().numpy(), expected(t, w, max_tid))
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if rows:
+            break
+    kern = [e for e in rows if "taxon_" in e.key]
+    memset = [e for e in rows if "memset" in e.key.lower()]
+    assert len(kern) == 1 and kern[0].count == 1, [e.key for e in rows]
+    assert "taxon_bins_kernel" in kern[0].key and not memset
+
+
+@pytest.mark.cuda
 def test_mesh_world1_nccl_equals_one_device(cuda, tmp_path, golden_index_dir):
     """One rank over NCCL: _run_mesh's [7, Bp] equals one device's _run on
     all seven rows (also with stage 2's caps binding), classify_batch
