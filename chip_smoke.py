@@ -17,16 +17,31 @@ that the reference wrote.
 
 Phases (any failure raises, and the script exits nonzero):
   1. the card (nvidia-smi name and power limit) and the software; nvcc
-     builds the kernels (timed)
+     builds the kernels and csrc/measure.cu's floors (timed, in
+     parallel); stage 1's and K2's registers, spills and stack from
+     -Xptxas -v (the `ptxas` line)
   2. the bench data (child process), the port's index loader and
      FastClassifier on "cuda"; the stages run once on the first full
      chunk of the narrowest width bucket, recording each kernel's inputs
      there (its first call, and its first call through an index list:
-     K1's and K2's resume, compact's second cut), and each kernel is held
+     K1's and K2's resumes (K2's mid and tail, each from a copy of the
+     carry, which the resume updates in place), compact's second cut),
+     and each kernel is held
      against its plain version on them: equal exactly, both timed with
      CUDA events (median of 20, L2 flushed before each call, as the path
      finds the tables cold), beside the least time the card could take
-     for the same work and, for compact, torch.nonzero on the same mask;
+     for the same work and, for compact, torch.nonzero on the same mask
+     (stage 1 also beside the operation bound of the earlier full-build
+     kernel, and beside its bloom reads alone, stage1_floor, a floor of
+     csrc/measure.cu); K2 on the burst carry at each cap of
+     WALK_SWEEP_CAPS, cold and warm, beside a bare pointer chase over
+     the lfc table with the same gathers a lane (walk_sweep, the other
+     floor of csrc/measure.cu); stage 1 on
+     tests/test_torch_stage1.stage1_cases (every width bucket, lek 13-31,
+     three bitmaps, every case reached); stage 1 and K2's three calls
+     held and timed likewise on the first chunk of each other width
+     bucket and on the W = 4096 and 8192 encodings below (the
+     `stage1_row_walks` line);
      the vote (K7) also on the first BLOCK bench reads encoded at W = 4096
      and 8192 (the buckets of 3-8 kb reads and of long-read segments), and
      on tests/test_torch_kernels.vote_cases (on the golden index, built
@@ -174,7 +189,17 @@ FAST_KERNELS = tuple(GLOBAL)
 HAND_FUNCS = {**GLOBAL, "shard_merge": ("shard_merge_kernel",)}
 # the calls through an index list that stage 2 makes, each held against
 # its plain version besides its kernel's first call
-INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]", "compact[src]")
+INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]",
+                    "row_walks[sel]#2", "compact[src]")
+# kernels whose every call a chunk is captured and checked (K2: the burst,
+# then the mid and the tail resume); "name[sel]#2" is the second call
+# through an index list
+EVERY_CALL = ("row_walks",)
+# the caps of the K2 sweep on the burst carry (0 and 2 fix the intercept,
+# 12 and 32 the slope), and the argument of a resume that it updates in
+# place (K2's carry, args[4])
+WALK_SWEEP_CAPS = (0, 2, 12, 32)
+IN_PLACE = {"row_walks": 4}
 REPLACES = {
     "unpack": "desamba_tpu/engine/fast_engine.py:141",
     "stage1": "desamba_tpu/engine/fast_engine.py:203",
@@ -249,19 +274,25 @@ def max_abs_err(x, y) -> int:
     return int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
 
 
-def cuda_ms(fn, n: int = 10, cold: bool = False) -> float:
+def cuda_ms(fn, n: int = 10, cold: bool = False, prep=None) -> float:
     """Median ms of n calls of fn, CUDA events around each (after one
-    untimed call); cold: L2 evicted before each call, outside the events."""
+    untimed call); cold: L2 evicted before each call, outside the events;
+    prep: run before each call, outside the events (a call that updates
+    its input in place gets a fresh copy there)."""
     import statistics
 
     import torch
 
+    if prep is not None:
+        prep()
     fn()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                         device="cuda") if cold else None
     torch.cuda.synchronize()
     ts = []
     for _ in range(n):
+        if prep is not None:
+            prep()
         if cold:
             flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
@@ -397,11 +428,34 @@ def kernel_inputs(cl, packed, lens) -> dict:
 
 def recording(cap: dict, name: str, fn):
     """fn, recording (args, keyword args) of its first call into cap, under
-    name, or "name[kw,...]" for a call with keyword arguments."""
+    name, or "name[kw,...]" for a call with keyword arguments; of a kernel
+    in EVERY_CALL every call, the second of a key as "key#2". A resume
+    that updates its carry in place (IN_PLACE) is recorded with a copy of
+    the carry as the call found it."""
     def call(*args, **kw):
-        cap.setdefault(f"{name}[{','.join(kw)}]" if kw else name, (args, kw))
+        key = f"{name}[{','.join(kw)}]" if kw else name
+        if name in EVERY_CALL and key in cap:
+            key += f"#{sum(k.split('#')[0] == key for k in cap) + 1}"
+        if key not in cap:
+            saved = list(args)
+            if kw and name in IN_PLACE:
+                saved[IN_PLACE[name]] = saved[IN_PLACE[name]].clone()
+            cap[key] = (tuple(saved), kw)
         return fn(*args, **kw)
     return call
+
+
+def in_place_call(name: str, kern, args, kw):
+    """(fn, prep) that time kern on args: for a resume that updates its
+    carry in place, fn runs on a copy of the carry that prep refreshes
+    (outside the timed events), so every call starts from the captured
+    carry."""
+    if not (kw and name in IN_PLACE):
+        return (lambda: kern(*args, **kw)), None
+    i = IN_PLACE[name]
+    work = args[i].clone()
+    a = (*args[:i], work, *args[i + 1:])
+    return (lambda: kern(*a, **kw)), (lambda: work.copy_(args[i]))
 
 
 def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
@@ -413,15 +467,7 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
     import torch
 
     if name == "stage1":
-        from desamba_tpu_torch.constants import STEP_EK
-        from desamba_tpu_torch.ops.ekmer import _probe_addrs
-
-        w01, codes2, l2, lek, sbm, mb, nw0 = args
-        want, *addrs = _probe_addrs(codes2, l2, lek, sbm, mb, stride=STEP_EK)
-        grid = out[0].numel()
-        return (nbytes(codes2, l2, *out)
-                + SECTOR * bloom_sectors(w01, nw0, want, *addrs),
-                grid * (4 * lek + 70))
+        return stage1_work(args, out)
     if name == "probe_reads":
         from desamba_tpu_torch.ops.ekmer import _probe_addrs
 
@@ -505,6 +551,42 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
     read_w, rlen, win_w, rel_lo, rel_hi, K = args
     return (nbytes(read_w, rlen, win_w, rel_lo, rel_hi, *out.values()),
             band_ops(read_w, rlen, rel_lo, rel_hi, K))
+
+
+def stage1_work(args, out, rolled: bool = True) -> tuple[int, int]:
+    """work("stage1"): the codes and lengths in and the outputs out once,
+    the distinct bitmap sectors the probes need (bloom_sectors), and
+    stage1_ops with this run's probed points."""
+    from desamba_tpu_torch.constants import STEP_EK
+    from desamba_tpu_torch.ops.ekmer import _probe_addrs
+
+    w01, codes2, l2, lek, sbm, mb, nw0 = args
+    want, *addrs = _probe_addrs(codes2, l2, lek, sbm, mb, stride=STEP_EK)
+    return (nbytes(codes2, l2, *out)
+            + SECTOR * bloom_sectors(w01, nw0, want, *addrs),
+            stage1_ops(*out[0].shape, lek, int(want.sum()), rolled))
+
+
+def stage1_ops(B2: int, n_g: int, lek: int, probed: int,
+               rolled: bool = True) -> int:
+    """int32 operations of stage 1 on B2 rows of n_g grid points, of which
+    `probed` pass the gate (the filter, k != 0 and p + lek <= len): ~10 a
+    point for the gate and the prefix, ~60 a probed point for the two
+    64-bit hashes, the bitmap addresses and the bit tests, plus the k-mer
+    and its base counts. The full build (the earlier kernel's, rolled=
+    False) takes ~4 a code, 4 * lek a point. The rolled formulation
+    (csrc/stage1.cu) builds a lane's first point in full (4 * lek), then
+    takes 23 a point: for each of the STEP_EK = 3 codes that enter, a
+    64-bit shift-or (3) and its count added and the leaving code's taken
+    off (4), and the mask to 2 * lek bits (2). A row's points go in runs
+    of ceil(n_g / 32), one a lane."""
+    grid = B2 * n_g
+    gate = grid * 10 + probed * 60
+    if not rolled:
+        return gate + grid * 4 * lek
+    per = -(-n_g // 32)
+    runs = B2 * -(-n_g // per)
+    return gate + (grid - runs) * 23 + runs * 4 * lek
 
 
 def band_ops(read_w, rlen, rel_lo, rel_hi, K: int) -> int:
@@ -832,14 +914,17 @@ def check_kernels(cap: dict) -> dict:
         kern, plain = KERNEL_OPS[name], PLAIN_OPS[name]
         shape = shapes[name](args) + "".join(
             f" {k}={v.numel()}" for k, v in kw.items())
-        got = kern(*args, **kw)
+        fn, prep = in_place_call(name, kern, args, kw)
+        if prep is not None:
+            prep()
+        got = fn()
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
         err = max_abs_err(got, ref)
         if err != 0:
             raise AssertionError(f"{key}: kernel differs from its plain "
                                  f"version (max abs err {err}) at {shape}")
-        ms = cuda_ms(lambda: kern(*args, **kw), 20, cold=True)
+        ms = cuda_ms(fn, 20, cold=True, prep=prep)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 20, cold=True)
         bound_ms, bound_by = bound(name, args, ref, **kw)
         library_ms = None
@@ -851,10 +936,232 @@ def check_kernels(cap: dict) -> dict:
         out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=library_ms, shape=shape)
+        if name == "stage1":
+            out[key]["bound_old_ms"] = stage1_old_bound(args, ref)
         log(f"smoke: {key} [{shape}] equal; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             + (f", torch.nonzero {library_ms:.4f} ms"
-               if library_ms is not None else ""))
+               if library_ms is not None else "")
+            + (f", full-build bound {out[key]['bound_old_ms']:.4f} ms"
+               if name == "stage1" else ""))
+    return out
+
+
+def stage1_old_bound(args, out) -> float:
+    """Stage 1's bound (ms) with the earlier kernel's full-build operation
+    count (stage1_ops rolled=False) and the same bytes."""
+    return bound_of(*stage1_work(args, out, rolled=False))[0]
+
+
+def check_chunk_calls(cap: dict, label: str) -> dict:
+    """Stage 1 and K2's three calls (the burst, the mid and the tail
+    resume) on another chunk's captured calls (kernel_inputs), each held
+    to its plain version (equal exactly, one launch a call, or the run
+    fails) and timed with L2 evicted beside its bound; stage 1 also
+    beside the full-build bound."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
+
+    out = {}
+    for key in ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2"):
+        args, kw = cap[key]
+        name = key.split("[")[0]
+        fn, prep = in_place_call(name, KERNEL_OPS[name], args, kw)
+        if prep is not None:
+            prep()
+        before = kernels.launches[name]
+        got = fn()
+        ref = PLAIN_OPS[name](*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, ref)
+        if err != 0 or kernels.launches[name] != before + 1:
+            raise AssertionError(f"{key} at {label}: kernel differs from its "
+                                 f"plain version (max abs err {err}) or "
+                                 f"launched other than once")
+        bound_ms, bound_by = bound(name, args, ref, **kw)
+        r = out[key] = dict(max_abs_err=err,
+                            ms=cuda_ms(fn, 20, cold=True, prep=prep),
+                            bound_ms=bound_ms, bound_by=bound_by)
+        if name == "stage1":
+            r["bound_old_ms"] = stage1_old_bound(args, ref)
+            r["shape"] = f"rows={args[1].shape[0]} W={args[1].shape[1]}"
+        else:
+            r["shape"] = f"n={args[4].shape[1]} cap={args[5]}" + (
+                f" sel={kw['sel'].numel()}" if kw else "")
+        log(f"smoke: {key} at {label} [{r['shape']}] equal; kernel "
+            f"{r['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", full-build bound {r['bound_old_ms']:.4f} ms"
+               if name == "stage1" else ""))
+    return out
+
+
+def check_stage1_cases() -> dict:
+    """The stage-1 kernel against stage1_plain on
+    tests/test_torch_stage1.stage1_cases at every (W, lek) of its
+    WIDTH_LEK and each bitmap: equal exactly, one launch a call, every
+    case reached, or the run fails."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_stage1 import (BITMAPS, WIDTH_LEK,
+                                   check_stage1_coverage, stage1_args,
+                                   stage1_cases)
+
+    n = 0
+    for W, lek in WIDTH_LEK:
+        for bitmap in BITMAPS:
+            case = stage1_cases(W, lek, bitmap)
+            args = stage1_args(case, "cuda")
+            before = kernels.launches["stage1"]
+            got, ref = stage1(*args), stage1_plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, ref)
+            if err != 0 or kernels.launches["stage1"] != before + 1:
+                raise AssertionError(f"stage1 on stage1_cases W={W} lek={lek}"
+                                     f" {bitmap}: max abs err {err}, or "
+                                     f"launched other than once")
+            check_stage1_coverage(case, got)
+            n += 1
+    log(f"smoke: stage1 on {n} stage1_cases calls equal, every case reached")
+    return dict(calls=n, widths_leks=WIDTH_LEK, bitmaps=BITMAPS)
+
+
+def stage1_floor(lib: str, args, out) -> dict:
+    """The bloom reads of a stage-1 call alone (args: its captured call,
+    out: its output): each probed point's bitmap-1 word and, where that
+    bit is set, its bitmap-2 word, gathered by csrc/stage1.cu
+    dsb_bloom_gather in csrc/measure.cu (library lib) from an address
+    list made here;
+    cold ms (L2 evicted, median of 20). The list is streamed in too (12
+    bytes a point). The hits must add up to the call's n_exist, or the
+    run fails."""
+    import ctypes
+
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.constants import STEP_EK
+    from desamba_tpu_torch.ops.ekmer import _probe_addrs
+
+    w01, codes2, l2, lek, sbm, mb, nw0 = args
+    want, (wi1, sh1), (wi2, sh2) = _probe_addrs(codes2, l2, lek, sbm, mb,
+                                                stride=STEP_EK)
+    m = want.reshape(-1)
+    i32 = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    a1, a2 = i32(wi1[m]), i32(wi2[m] + nw0)
+    sh = i32(sh1[m] | (sh2[m] << 8))
+    n = a1.numel()
+    sums = torch.zeros(-(-n // 32), dtype=torch.int32, device=a1.device)
+    fn = ctypes.CDLL(lib).dsb_bloom_gather
+    P = ctypes.c_void_p
+    fn.argtypes = [P, P, P, P, ctypes.c_longlong, P, P]
+    fn.restype = ctypes.c_int
+
+    def run():
+        rc = fn(kernels.ptr(w01), kernels.ptr(a1), kernels.ptr(a2),
+                kernels.ptr(sh), n, kernels.ptr(sums),
+                kernels.stream(a1.device))
+        if rc != 0:
+            raise RuntimeError(f"dsb_bloom_gather: cudaError {rc}")
+
+    run()
+    hits = int(sums.sum(dtype=torch.int64))
+    if hits != int(out[3].sum(dtype=torch.int64)):
+        raise AssertionError(f"bloom floor: {hits} hits, stage 1 "
+                             f"{int(out[3].sum())}")
+    set1 = ((w01[a1].to(torch.int64) >> (sh & 31)) & 1).bool()
+    r = dict(ms=cuda_ms(run, 20, cold=True), probed_points=n,
+             bitmap2_reads=int(set1.sum()), hits=hits,
+             streamed_bytes=12 * n + 4 * sums.numel())
+    log(f"smoke: stage1 bloom floor [{n} probed points, "
+        f"{r['bitmap2_reads']} bitmap-2 reads]: {r['ms']:.4f} ms")
+    return r
+
+
+def walk_sweep(lib: str, args, kern=None) -> dict:
+    """K2 on the burst carry of a chunk (args: its captured call) at each
+    cap of WALK_SWEEP_CAPS: cold (L2 evicted) and warm ms, median of 20;
+    beside a bare pointer chase over fm.lfc (dsb_lf_chase in
+    csrc/measure.cu, library lib) from the same start rows with the
+    same gathers each lane makes at that cap (its steps, and one more
+    where it stopped), the chain's floor on this card. Warm calls follow
+    a ~0.1 ms spin of the card (torch.cuda._sleep), so that the host's
+    launch is hidden and the events time the kernel. The intercept of
+    ms against cap is launch plus start-up; the slope, a step. kern: the
+    K2 call to sweep (default the port's row_walks_state)."""
+    import ctypes
+
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
+
+    fm, codes, lanes, max_lens, state, _ = args
+    kern = kern or KERNEL_OPS["row_walks"]
+    chase = ctypes.CDLL(lib).dsb_lf_chase
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    chase.argtypes = [P, LL, P, P, LL, P, P]
+    chase.restype = ctypes.c_int
+    n = state.shape[1]
+    start = state[0].contiguous()
+    sink = torch.empty(n, dtype=torch.int32, device=state.device)
+    busy = lambda: torch.cuda._sleep(200_000)  # noqa: E731
+    out = {}
+    for c in WALK_SWEEP_CAPS:
+        run = lambda: kern(fm, codes, lanes, max_lens, state, c)
+        res = run()
+        loads = ((res[2] - state[2])
+                 + (res[3] & (1 - state[3]))).to(torch.int32).contiguous()
+
+        def chased():
+            rc = chase(kernels.ptr(fm.lfc), fm.lfc.shape[0],
+                       kernels.ptr(start), kernels.ptr(loads), n,
+                       kernels.ptr(sink), kernels.stream(state.device))
+            if rc != 0:
+                raise RuntimeError(f"dsb_lf_chase: cudaError {rc}")
+
+        out[c] = dict(ms=cuda_ms(run, 20, cold=True),
+                      warm_ms=cuda_ms(run, 20, prep=busy),
+                      chase_ms=cuda_ms(chased, 20, cold=True),
+                      chase_warm_ms=cuda_ms(chased, 20, prep=busy),
+                      gathers=int(loads.sum(dtype=torch.int64)),
+                      max_gathers=int(loads.max()))
+        r = out[c]
+        log(f"smoke: row_walks sweep cap={c}: kernel {r['ms']:.4f} ms cold, "
+            f"{r['warm_ms']:.4f} warm; chase {r['chase_ms']:.4f} cold, "
+            f"{r['chase_warm_ms']:.4f} warm; {r['gathers']} gathers, at most "
+            f"{r['max_gathers']} a lane")
+    return out
+
+
+def ptxas_report(info: dict) -> dict:
+    """{kernel: [{function, registers, spill_stores, spill_loads,
+    stack}]} from each library's nvcc -Xptxas -v output."""
+    import re
+
+    out = {}
+    for name, d in info.items():
+        funcs, cur = [], None
+        for ln in d["log"].splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                cur = dict(function=m.group(1))
+                funcs.append(cur)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+        out[name] = funcs
     return out
 
 
@@ -936,12 +1243,12 @@ def check_vote(cl, reads, gtabs) -> tuple[dict, dict, dict]:
     return out, full, caps
 
 
-def check_band(cl, chunks: dict, caps: dict, sass: dict) -> dict:
+def check_band(cl, caps: dict, sass: dict) -> dict:
     """K8 against band_score_packed_plain at every band the classifier
     makes beyond check_kernels' W = 2048 call (K = 144): its first call
     on the first chunk of each other width bucket of the bench reads (W
     = 3072, K = 208) and on the first BLOCK bench reads encoded at W = 4096
-    and 8192 (K = 272; caps: check_vote's captured calls), each timed
+    and 8192 (K = 272; caps: {W: kernel_inputs} of those), each timed
     cold (kernel median of 20, plain of 5) beside the bound of the
     bit-plane formulation (band_ops) and the SWAR formulation's 25-op
     bound; and on tests/test_torch_band_score.band_cases at each (K, W)
@@ -960,9 +1267,6 @@ def check_band(cl, chunks: dict, caps: dict, sass: dict) -> dict:
     kern, plain = KERNEL_OPS["band_score_packed"], PLAIN_OPS[
         "band_score_packed"]
     calls = {}
-    for W in sorted(chunks)[1:]:
-        calls[f"W={W}"] = kernel_inputs(cl, *chunks[W][:2])[
-            "band_score_packed"][0]
     for W, cap in sorted(caps.items()):
         calls[f"W={W}"] = cap["band_score_packed"][0]
     for K, W in (*BANDS, (272, 8192)):
@@ -1026,6 +1330,7 @@ def where_time_goes(cl, chunks: dict, reads, card: str,
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
         row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
+        row["1 probe+seeds"]["bound_old_ms"] = stage1_old_bound(*s1_io)
         # the vote kernel (L2 evicted) beside its bound (ms, "bytes" or
         # "operations"): phase 2 timed it on the first chunk
         if W == min(chunks):
@@ -1780,13 +2085,16 @@ def main() -> int:
     from desamba_tpu_torch import kernels
 
     t0 = time.time()
-    info = kernels.build_all()
+    info = kernels.build_all(extra=("measure.cu",))
     t_build = time.time() - t0
     print(f"kernels built in {t_build:.2f} s", flush=True)
     for name, d in info.items():
         regs = [ln.strip() for ln in d["log"].splitlines()
                 if "registers" in ln]
         log(f"smoke: {name}: {' | '.join(regs) or d['log'][:200]}")
+    ptxas = ptxas_report(info)
+    print("ptxas " + json.dumps(
+        {k: ptxas[k] for k in ("stage1", "row_walks")}), flush=True)
     sass = band_sass(info["band_score_packed"]["path"])
     print("band_score_packed SASS " + json.dumps(sass), flush=True)
     from desamba_tpu_torch.engine.native import ensure_built
@@ -1795,7 +2103,7 @@ def main() -> int:
 
     # ---- phase 2: data, classifier, kernel-vs-plain checks
     from desamba_tpu_torch.convert import build_tables
-    from desamba_tpu_torch.engine.fast_engine import FastClassifier
+    from desamba_tpu_torch.engine.fast_engine import FastClassifier, PLAIN_OPS
     from desamba_tpu_torch.index.loader import load_index
     from desamba_tpu_torch.io.fastx import read_fastx
 
@@ -1816,13 +2124,31 @@ def main() -> int:
     chunks = first_chunks(cl, reads)
     cap = kernel_inputs(cl, *chunks[min(chunks)][:2])
     checks = check_kernels(cap)
+    measure = info["measure.cu"]["path"]
+    sweep = walk_sweep(measure, cap["row_walks"][0])
+    s1_args = cap["stage1"][0]
+    floors = {f"W={min(chunks)}": stage1_floor(
+        measure, s1_args, PLAIN_OPS["stage1"](*s1_args))}
+    s1_cases = check_stage1_cases()
     t0 = time.time()
     gidx_dir = make_golden_index()
     gidx = load_index(gidx_dir)
     t_golden = time.time() - t0
     vote_checks, full_checks, caps = check_vote(cl, reads,
                                                 build_tables(gidx, "cpu"))
-    band_checks = check_band(cl, chunks, caps, sass)
+    for W in sorted(chunks)[1:]:
+        caps[W] = kernel_inputs(cl, *chunks[W][:2])
+        s1_args = caps[W]["stage1"][0]
+        floors[f"W={W}"] = stage1_floor(measure, s1_args,
+                                        PLAIN_OPS["stage1"](*s1_args))
+    more = {f"W={W}": check_chunk_calls(c, f"W={W}")
+            for W, c in sorted(caps.items())}
+    print("stage1_row_walks " + json.dumps(dict(
+        card=card, first_chunk={k: checks[k] for k in checks
+                                if k.startswith(("stage1", "row_walks"))},
+        other_chunks=more, row_walks_cap_sweep=sweep,
+        stage1_bloom_floor=floors, stage1_cases=s1_cases)), flush=True)
+    band_checks = check_band(cl, caps, sass)
     k8_args = cap["band_score_packed"][0]
     checks["band_score_packed"]["bound_old_ms"] = bound_of(
         0, band_ops_swar(k8_args[0], k8_args[5]))[0]
@@ -1949,6 +2275,11 @@ def main() -> int:
             log(f"smoke: stage {st} at {key}: device {r['device_ms']:.3f} "
                 f"ms, span {r['span_ms']:.3f} ms, "
                 f"{r['kernels_per_call']:.0f} launches a call")
+        r1 = row["1 probe+seeds"]
+        log(f"smoke: stage 1 probe+seeds at {key}: device "
+            f"{r1['device_ms']:.3f} ms, span {r1['span_ms']:.3f} ms, bound "
+            f"{r1['bound_ms']:.4f} ms (full-build bound "
+            f"{r1['bound_old_ms']:.4f} ms)")
         r3 = row["3 locate+vote"]
         log(f"smoke: vote (K7) at {key}: kernel {r3['vote_ms']:.4f} ms, "
             f"bound {r3['vote_bound'][0]:.4f} ms ({r3['vote_bound'][1]})")
@@ -1981,6 +2312,14 @@ def main() -> int:
     rows[names.index("interval_search")]["validation_path"] = vc[
         "interval_search"]
     rows[names.index("vote")]["other_calls"] = vote_checks
+    rows[names.index("stage1")].update(
+        bound_old_ms=checks["stage1"]["bound_old_ms"], ptxas=ptxas["stage1"],
+        other_calls={W: c["stage1"] for W, c in more.items()},
+        bloom_floor=floors, cases=s1_cases)
+    rows[names.index("row_walks")].update(
+        ptxas=ptxas["row_walks"], cap_sweep=sweep,
+        other_calls={W: {k: v for k, v in c.items() if k != "stage1"}
+                     for W, c in more.items()})
     k8 = rows[names.index("band_score_packed")]
     k8.update(bound_old_ms=checks["band_score_packed"]["bound_old_ms"],
               sass=sass, other_calls=band_checks)

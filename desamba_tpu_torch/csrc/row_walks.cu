@@ -14,15 +14,20 @@
 // serial chain of gathers and the kernel is latency-bound. The design
 // keeps the 5-field carry in registers, reads char and next row from one
 // 32-bit word, and retires a lane's thread as soon as its walk stops, so
-// the few long walks do not hold the short ones.
+// the few long walks do not hold the short ones. On the card its steps
+// cost what a bare pointer chase over lfc with the same gathers costs
+// (csrc/measure.cu, chip_smoke.walk_sweep): the read code, gathered
+// beside each lfc word, adds nothing to the chain (loading a walk's codes
+// into registers before its first step, or issuing lanes and max_lens
+// with the carry, was measured and did not help).
 //
 // Carry layout: int32 [5, n] rows sp, ptr, n, done, bad (done/bad as 0/1).
 //
 // Resume through an index list: with sel (int32[m], distinct slot indices;
 // entries outside [0, n) are skipped) thread j runs slot sel[j] of the
-// full carry, and st_out, a copy of st_in that the caller made, keeps
-// every other slot: JAX's gather, resume and scatter back of the walks'
-// two cuts (fast_engine.py:314-347) without moving the carry.
+// carry in place (st_out == st_in) and writes only a slot that it walked:
+// JAX's gather, resume and scatter back of the walks' two cuts
+// (fast_engine.py:314-347) without moving or copying the carry.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -58,12 +63,12 @@ __device__ __forceinline__ bool lf_step(const unsigned* __restrict__ lfc,
   return true;
 }
 
+// st_in and st_out alias on a resume.
 __global__ void row_walks_kernel(
     const unsigned* __restrict__ lfc, long long n_rows,
     const int* __restrict__ codes, int W, const int* __restrict__ lanes,
-    const int* __restrict__ max_lens, const int* __restrict__ st_in,
-    int* __restrict__ st_out, long long n, const int* __restrict__ sel,
-    long long m, int trace_cap) {
+    const int* __restrict__ max_lens, const int* st_in, int* st_out,
+    long long n, const int* __restrict__ sel, long long m, int trace_cap) {
   const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (t >= m) return;
@@ -71,12 +76,14 @@ __global__ void row_walks_kernel(
   if (i < 0 || i >= n) return;
   int sp = st_in[i], ptr = st_in[n + i], cnt = st_in[2 * n + i];
   int done = st_in[3 * n + i], bad = st_in[4 * n + i];
-  if (!done && trace_cap > 0) {
+  const bool walk = !done && trace_cap > 0;
+  if (walk) {
     const int* row = codes + static_cast<long long>(lanes[i]) * W;
     const int max_len = max_lens[i];
     for (int it = 0; it < trace_cap && !done; ++it)
       if (!lf_step(lfc, n_rows, row, W, max_len, sp, ptr, cnt, bad)) done = 1;
   }
+  if (sel != nullptr && !walk) return;  // in place: the slot is unchanged
   st_out[i] = sp;
   st_out[n + i] = ptr;
   st_out[2 * n + i] = cnt;
@@ -127,6 +134,7 @@ __global__ void row_walks_trace_kernel(
 
 }  // namespace
 
+// st_out: a new carry without sel; st_in itself with sel (in place).
 extern "C" int dsb_row_walks(const void* lfc, long long n_rows,
                              const void* codes, int W, const void* lanes,
                              const void* max_lens, const void* st_in,

@@ -6,14 +6,19 @@ desamba_tpu/engine/native.py, fed from the port's `HostIndex`: each hit
 comes back as an oracle `Chain` with all twelve columns of the engine's
 record, as the sharded engine's merge and the SAM formatter read them.
 `native/` is
-a C++ library beside both packages; it is built with `make -C native
-libdesamba_host.so` when missing or older than its source.
+a C++ library beside both packages; it is built with its Makefile's
+`libdesamba_host.so` target when missing or older than its source
+(`ensure_built`).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
+import tempfile
+
 import numpy as np
 
 from ..constants import DEFAULT_FILTER_MIN_LENGTH, DEFAULT_MIN_SCORE
@@ -21,7 +26,6 @@ from ..oracle.classify import Chain, ReadResult
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libdesamba_host.so")
 _HIT_FIELDS = 12  # columns of a hit record (dsb_classify_batch)
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -50,14 +54,39 @@ class _IndexDesc(ctypes.Structure):
     ]
 
 
-def ensure_built() -> str:
-    """Build libdesamba_host.so if it is missing or stale; its path."""
-    src = os.path.join(_NATIVE_DIR, "classify_host.cpp")
-    if (not os.path.exists(_LIB_PATH)
-            or os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)):
-        subprocess.run(["make", "-C", _NATIVE_DIR, "libdesamba_host.so"],
-                       check=True, capture_output=True)
-    return _LIB_PATH
+def ensure_built(native_dir: str = _NATIVE_DIR) -> str:
+    """Build native_dir's libdesamba_host.so if it is missing or older
+    than its source; its path.
+
+    Safe for concurrent callers (test workers, ranks): the check and the
+    build hold an exclusive flock on native_dir/.libdesamba_host.lock;
+    make runs in a temporary copy of the Makefile and the source
+    (native_dir/.libdesamba_host-build-*, git-ignored), and the built
+    library is moved into place with os.replace, so that a process that
+    loads the library meanwhile never maps a half-written file."""
+    lib = os.path.join(native_dir, "libdesamba_host.so")
+    src = os.path.join(native_dir, "classify_host.cpp")
+
+    def fresh() -> bool:
+        return (os.path.exists(lib)
+                and os.path.getmtime(lib) >= os.path.getmtime(src))
+
+    if fresh():
+        return lib
+    with open(os.path.join(native_dir, ".libdesamba_host.lock"), "a") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not fresh():
+            tmp = tempfile.mkdtemp(prefix=".libdesamba_host-build-",
+                                   dir=native_dir)
+            try:
+                for name in ("Makefile", "classify_host.cpp"):
+                    shutil.copy2(os.path.join(native_dir, name), tmp)
+                subprocess.run(["make", "-C", tmp, "libdesamba_host.so"],
+                               check=True, capture_output=True)
+                os.replace(os.path.join(tmp, "libdesamba_host.so"), lib)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    return lib
 
 
 _lib = None

@@ -118,13 +118,17 @@ def _lib_path(src: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build_all() -> dict:
+def build_all(extra: tuple = ()) -> dict:
     """Compile every kernel library that is not built yet, all in parallel.
     Returns build_info (per kernel: library path, build seconds, nvcc
-    output with the ptxas register report)."""
+    output with the ptxas register report). extra: sources of csrc/ that
+    no path calls (measurement-only floors, csrc/measure.cu), built
+    alongside and keyed in build_info by their file name."""
     with _lock:
         todo = {}
-        for name, (src, _, _) in KERNELS.items():
+        srcs = {**{n: s for n, (s, _, _) in KERNELS.items()},
+                **{s: s for s in extra}}
+        for name, src in srcs.items():
             path = _lib_path(src)
             if os.path.exists(path):
                 build_info.setdefault(name, dict(path=path, seconds=0.0,

@@ -297,7 +297,11 @@ def row_walks_state(fm: FmArrays, codes, lanes, max_lens, state,
                     trace_cap: int, sel=None) -> torch.Tensor:
     """Run up to trace_cap LF steps on every live lane of a [5, n] carry
     (with sel, int32[m] of distinct slot indices, on the listed slots
-    only); returns the new carry."""
+    only); returns the new carry. With sel, the CUDA route updates `state`
+    in place and returns it (no copy of the carry; unlisted slots stay as
+    they are); the CPU route returns a new carry and leaves `state` as it
+    was. Callers use the returned carry and never `state` after a
+    resume."""
     n = state.shape[1]
     dev = state.device
     kernels.check("lfc", fm.lfc, torch.int32, device=dev)
@@ -310,7 +314,7 @@ def row_walks_state(fm: FmArrays, codes, lanes, max_lens, state,
     if not kernels.launch_device(state):
         return row_walks_plain(fm, codes, lanes, max_lens, state, trace_cap,
                                sel)
-    out = torch.empty_like(state) if sel is None else state.clone()
+    out = torch.empty_like(state) if sel is None else state
     with torch.cuda.device(dev):
         kernels.call("row_walks", kernels.ptr(fm.lfc), fm.lfc.shape[0],
                      kernels.ptr(codes), codes.shape[1], kernels.ptr(lanes),

@@ -70,7 +70,9 @@ def stage1_plain(w01, codes2, lengths2, lek: int, sbm: int, mask_bits: int,
 def stage1(w01, codes2, lengths2, lek: int, sbm: int, mask_bits: int,
            n_words0: int):
     """Stage 1 on codes2 uint8[B2, W] (codes 0-3, padding past each row's
-    length) and lengths2 int32[B2], probing the bloom bitmaps w01 int32
+    length, also 0-3: the kernel rolls each k-mer from the one before it,
+    which equals the plain version's full build only for 2-bit codes) and
+    lengths2 int32[B2], probing the bloom bitmaps w01 int32
     (uint32 words of bitmap 1, then bitmap 2 from word n_words0) at
     mask_bits hash bits, on the grid p = (STEP_EK - 1) + STEP_EK*g of
     lek-base k-mers, with a top seed per WINDOW grid points. Returns

@@ -175,3 +175,33 @@ def test_native_binding_equals_jax(host_index, golden_oracle_index):
         assert (g.name, g.seq, g.aborted) == (r.name, r.seq, r.aborted)
         assert [fields(h) for h in g.hits] == [fields(h) for h in r.hits]
     assert sum(any(h.primary == 1 for h in g.hits) for g in got) > 36
+
+
+def test_native_build_is_safe_for_concurrent_callers(tmp_path):
+    """Two processes call the port's engine.native.ensure_built at once on
+    a copy of native/ without the library: one builds it under the lock
+    (make in a temporary copy, then os.replace), the other waits for it;
+    both load the library and find its entry points, and no temporary
+    build directory is left."""
+    import subprocess
+    import sys
+
+    nat = tmp_path / "native"
+    nat.mkdir()
+    for name in ("Makefile", "classify_host.cpp"):
+        shutil.copy2(os.path.join(ROOT, "native", name), nat)
+    code = ("import ctypes, sys\n"
+            "from desamba_tpu_torch.engine.native import ensure_built\n"
+            "p = ensure_built(sys.argv[1])\n"
+            "ctypes.CDLL(p).dsb_classify_batch\n"
+            "print(p)\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(nat)],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-2000:]
+    lib = str(nat / "libdesamba_host.so")
+    assert [o.strip() for o, _ in outs] == [lib, lib]
+    assert not [f for f in os.listdir(nat) if "-build-" in f]

@@ -216,6 +216,30 @@ def test_stage1_kernel_golden_rows(cuda, tables, W):
     assert int(ref[2].max()) > 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", ["all_set", "dense", "sparse"])
+def test_stage1_kernel_stage1_cases(cuda, bitmap):
+    """test_torch_stage1.stage1_cases at every (W, lek) of its WIDTH_LEK
+    on the card: the kernel equals stage1_plain on every output, one
+    launch a call, every case reached."""
+    from desamba_tpu_torch.ops.seeds import stage1, stage1_plain
+    from test_torch_stage1 import (WIDTH_LEK, check_stage1_coverage,
+                                   stage1_args, stage1_cases)
+
+    for W, lek in WIDTH_LEK:
+        case = stage1_cases(W, lek, bitmap)
+        args = stage1_args(case, cuda)
+        before = kernels.launches["stage1"]
+        got = stage1(*args)
+        ref = stage1_plain(*args)
+        torch.cuda.synchronize()
+        assert kernels.launches["stage1"] == before + 1
+        for name, g, r in zip(("lo26", "kidx", "runlen", "n_exist"), got,
+                              ref):
+            assert torch.equal(g, r), (W, lek, name)
+        check_stage1_coverage(case, got)
+
+
 # ------------------------------------------------------------ stage 3 --
 def _lf_chains(lfc: np.ndarray, L: int, rounds: int):
     """(steps, end) of the LF chain from each row in [0, L), walked with
@@ -1375,7 +1399,8 @@ def test_row_grid_kernel(cuda, S):
 def test_resume_kernels_through_an_index_list(cuda, tables, n):
     """interval_search_state and row_walks_state with sel (caps 1, n/8
     and past n of the live lanes) against their plain versions, which
-    gather, loop and scatter; the input carry is left as it was."""
+    gather, loop and scatter; K1's input carry is left as it was, and
+    K2's resume updates its carry in place, unlisted slots unchanged."""
     from desamba_tpu_torch.ops.compact import compact
     from desamba_tpu_torch.ops.fm import (interval_search_plain,
                                           interval_search_state, iv_init,
@@ -1395,12 +1420,18 @@ def test_resume_kernels_through_an_index_list(cuda, tables, n):
         got = interval_search_state(*args, st, 8, sel=sel)
         ref = interval_search_plain(*args, st, 8, sel=sel)
         wsel = compact(wst[3], cap)
-        wgot = row_walks_state(fm, d["codes"], d["lane"], mlen, wst, 16,
+        # the kernel's resume updates the carry in place: it gets a copy
+        wcopy = wst.clone()
+        wgot = row_walks_state(fm, d["codes"], d["lane"], mlen, wcopy, 16,
                                sel=wsel)
         wref = row_walks_plain(fm, d["codes"], d["lane"], mlen, wst, 16,
                                sel=wsel)
         torch.cuda.synchronize()
         assert torch.equal(got, ref) and torch.equal(wgot, wref), cap
+        assert wgot is wcopy
+        listed = torch.zeros(n, dtype=torch.bool, device=cuda)
+        listed[wsel[(wsel >= 0) & (wsel < n)].long()] = True
+        assert torch.equal(wgot[:, ~listed], wst[:, ~listed])
         assert torch.equal(st, kept)
 
 

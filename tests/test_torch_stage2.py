@@ -239,3 +239,85 @@ def test_resume_through_an_index_list_equals_jax(jax_cl, tables):
     wref[:, idx] = torch.from_numpy(np.stack(
         [np.asarray(x).astype(np.int32) for x in wres]))
     assert torch.equal(wgot, wref) and not torch.equal(wgot, wst)
+
+
+# ------------------------------------------- K2's in-place resume --
+def row_walks_in_place(fm, codes, lanes, max_lens, state, trace_cap,
+                       sel=None):
+    """row_walks_state's CUDA contract on the CPU: a resume through sel
+    writes the listed slots' new carry into `state` itself and returns
+    it; the call without sel returns a new carry."""
+    from desamba_tpu_torch.ops.fm import row_walks_plain
+
+    out = row_walks_plain(fm, codes, lanes, max_lens, state, trace_cap, sel)
+    if sel is None:
+        return out
+    state.copy_(out)
+    return state
+
+
+def test_in_place_resume_leaves_unlisted_slots(tables):
+    """A resume in place returns the carry it was given, with the listed
+    slots walked as row_walks_plain walks them and every other slot (and
+    an entry of sel outside [0, n)) as it was."""
+    from desamba_tpu_torch.ops.compact import compact_plain
+    from desamba_tpu_torch.ops.fm import row_walks_plain, rw_init
+
+    fm = tables[0]
+    n = 3000
+    d = _search_inputs(fm, n, 300, seed=12)
+    mlen = torch.clamp(d["s_idx"] - 13, min=0).to(torch.int32)
+    wst = row_walks_plain(fm, d["codes"], d["lane"], mlen,
+                          rw_init(d["sp0"], d["s_idx"] - 13), 1)
+    sel = compact_plain(wst[3], 64)
+    sel[-1] = n + 7  # skipped
+    before = wst.clone()
+    ref = row_walks_plain(fm, d["codes"], d["lane"], mlen, wst, 16, sel=sel)
+    got = row_walks_in_place(fm, d["codes"], d["lane"], mlen, wst, 16,
+                             sel=sel)
+    assert got is wst and torch.equal(got, ref)
+    listed = torch.zeros(n, dtype=torch.bool)
+    listed[sel[(sel >= 0) & (sel < n)].long()] = True
+    assert torch.equal(got[:, ~listed], before[:, ~listed])
+    assert not torch.equal(got[:, listed], before[:, listed])
+
+
+@pytest.mark.parametrize("bursts", [(0, 0, 0, 0), None],
+                         ids=["bursts0", "defaults"])
+def test_chunk_with_in_place_resumes_equals_jax(monkeypatch, jax_cl,
+                                                tables, bursts):
+    """A golden W = 2048 chunk through build_full, the row walks' two
+    resumes updating the carry in place (row_walks_in_place), equals
+    JAX's fused program: stage 2 never reads a carry after handing it to
+    a resume. With the bursts at 0 the walks' cuts bind."""
+    from desamba_tpu.engine import fast_engine as jfe
+    from desamba_tpu_torch.engine import fast_engine as tfe
+    from desamba_tpu_torch.index.loader import load_index
+    from test_torch_fast_engine import _golden_reads
+
+    if bursts is not None:
+        for mod in (jfe, tfe):
+            for name, v in zip(STAGE2_BURSTS, bursts):
+                monkeypatch.setattr(mod, name, v)
+    fm, ek, loc, ra = tables
+    calls = []
+
+    def recording(*a, sel=None):
+        calls.append(sel is not None)
+        return row_walks_in_place(*a, sel=sel)
+
+    full = tfe.build_full(ek.lek, ek.single_base_max, ek.mask_bits, 20,
+                          ek.n_words0,
+                          dict(tfe.PLAIN_OPS, row_walks=recording))
+    reads = _golden_reads(min_len=1025, max_len=2048)
+    packed, lens, _ = jax_cl._encode(reads, W=2048, Bp=64)
+    got = full(fm, loc, ra, ek.w01, torch.from_numpy(packed),
+               torch.from_numpy(lens))
+    jek = jax_cl.ek
+    jfull = jax.jit(jfe._build_full(jek.lek, jek.single_base_max,
+                                    jek.mask_bits, 20, jek.n_words0))
+    ref = jfull(jax_cl.fm, jax_cl.loc, jax_cl.ra, jek.w01,
+                jnp.asarray(packed), jnp.asarray(lens))
+    assert calls == [False, True, True]
+    _eq(ref, got, "build_full [7, Bp]")
+    assert int((got[1] >= 0).sum()) > 0
