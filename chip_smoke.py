@@ -38,10 +38,19 @@ Phases (any failure raises, and the script exits nonzero):
      the lfc table with the same gathers a lane (walk_sweep, the other
      floor of csrc/measure.cu); stage 1 on
      tests/test_torch_stage1.stage1_cases (every width bucket, lek 13-31,
-     three bitmaps, every case reached); stage 1 and K2's three calls
-     held and timed likewise on the first chunk of each other width
-     bucket and on the W = 4096 and 8192 encodings below (the
-     `stage1_row_walks` line);
+     three bitmaps, every case reached); stage 1, K2's three calls,
+     compact's first call and first through a source list, row_grid and
+     locate held and timed likewise on the first chunk of each other
+     width bucket and on the W = 4096 and 8192 encodings below
+     (check_chunk_calls; stage 1 and K2 in the `stage1_row_walks` line);
+     compact's and row_grid's calls of every chunk launched back to back
+     on one stream, each equal to its plain version
+     (check_scan_back_to_back); locate on the first chunk of each width
+     bucket split into its parts, each alone (the walk, the search and
+     expansion from a verified guess as the kernel runs them; floors of
+     csrc/measure.cu),
+     with n_us, the guess's hit share and the routes of its misses
+     (locate_split; the `locate_split` line);
      the vote (K7) also on the first BLOCK bench reads encoded at W = 4096
      and 8192 (the buckets of 3-8 kb reads and of long-read segments), and
      on tests/test_torch_kernels.vote_cases (on the golden index, built
@@ -105,7 +114,8 @@ Phases (any failure raises, and the script exits nonzero):
      identical to the sharded plain path on every read; agreement with
      the native engine (gated at 0.99), the reads called otherwise than by
      the monolithic classifier, truth accuracy; each stage's device time
-     on the first chunk, shard by shard, and the batch's device time
+     on the first chunk, shard by shard, and the batch's device time;
+     locate on each shard's first chunk split as in phase 2
   8. the data-parallel classifier (parallel/, FastClassifier(mesh=...)):
      the taxon-weight kernel (K13; these checks run after phase 4, where
      torch.profiler still sees every kernel) against its plain version,
@@ -156,6 +166,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
+HIDE_HOST_CYCLES = 400_000  # ~0.2 ms of spin before a cold call's events
 STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
 STAGE3_MAX_LAUNCHES = 6   # and of stage 3 (locate, then the vote)
 N_SHARDS = 2          # phase 7's genome shards (SHARDED_r05.json's count)
@@ -175,8 +186,8 @@ GLOBAL = {
     "unpack": ("unpack_kernel",),
     "stage1": ("stage1_kernel",),
     "interval_search": ("interval_search_kernel",),
-    "compact": ("compact_scatter_kernel", "compact_count_kernel"),
-    "row_grid": ("row_grid_scatter_kernel", "row_grid_count_kernel"),
+    "compact": ("compact_kernel",),
+    "row_grid": ("row_grid_kernel",),
     "row_walks": ("row_walks_kernel",),
     "locate": ("locate_kernel",),
     "vote": ("vote_kernel", "vote_fill_kernel", "vote_scatter_kernel"),
@@ -276,9 +287,13 @@ def max_abs_err(x, y) -> int:
 
 def cuda_ms(fn, n: int = 10, cold: bool = False, prep=None) -> float:
     """Median ms of n calls of fn, CUDA events around each (after one
-    untimed call); cold: L2 evicted before each call, outside the events;
-    prep: run before each call, outside the events (a call that updates
-    its input in place gets a fresh copy there)."""
+    untimed call); cold: L2 evicted before each call, outside the events,
+    and the card then kept busy ~0.2 ms (torch.cuda._sleep) so that fn's
+    launches are queued before the first event fires and the host's time
+    to them (40-80 µs a wrapper call) is not counted; warm (spans), the
+    host's launch gaps are counted; prep: run before each call, outside
+    the events (a call that updates its input in place gets a fresh copy
+    there)."""
     import statistics
 
     import torch
@@ -295,6 +310,7 @@ def cuda_ms(fn, n: int = 10, cold: bool = False, prep=None) -> float:
             prep()
         if cold:
             flush.zero_()
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -793,6 +809,22 @@ def band_windows_work(ra, read_w2, lengths2, ref_c, diag_c, K,
             3 * (out[0].numel() + out[2].numel()) + 20 * ref_c.numel())
 
 
+def locate_guess(fm, loc, rows, valid, P) -> dict:
+    """csrc/locate.cu's search on these lanes, by its numpy model
+    (tests/test_torch_locate.tail_model) from the plain walk's rows,
+    steps and ok: the model's dict (outputs, routes, probes), on the
+    CPU."""
+    from desamba_tpu_torch.ops.locate import resolve_rows
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_locate import model_tables, tail_model
+
+    res = resolve_rows(fm, loc, rows, valid)
+    return tail_model(model_tables(fm, loc, lfc=False),
+                      res["row"].cpu().numpy(), res["steps"].cpu().numpy(),
+                      res["ok"].cpu().numpy(), P)
+
+
 def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
     """(bytes, int32 operations) of resolve_rows then expand_refpos on
     these lanes. Bytes: the lanes in and the [n, P] outputs out once; one
@@ -801,12 +833,14 @@ def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
     same chain and a walk's rows are random; and each distinct sector of
     the other tables once, since a sector read again, by another lane or
     by a deeper level of the same search, can come from L2: the sample
-    pair (sa_uni, sa_off), every uni_start probe of the binary searches
-    (the upper levels are a few sectors that all lanes share; only the
-    levels whose probes spread wider than L2 holds cost about a sector a
-    lane), the reflist pair and the P occurrences in refpos_global and
-    refpos_refid. Operations: ~20 a step, ~6 a search probe, ~40 a lane
-    and ~10 an output slot."""
+    pair (sa_uni, sa_off), the uni_start sectors the search reads, the
+    reflist pairs and the P occurrences in refpos_global and
+    refpos_refid. The search as csrc/locate.cu runs it (locate_guess): the
+    start and next start of the unitig the sample names, its reflist
+    pair, and, where the guess fails, the fallback's probes and the found
+    unitig's start and reflist pair. Operations: ~20 a step, ~6 a search
+    probe, ~40 a lane and ~10 an output slot."""
+    import numpy as np
     import torch
 
     from desamba_tpu_torch.ops.locate import resolve_rows
@@ -822,29 +856,144 @@ def locate_work(fm, loc, rows, valid, P, out) -> tuple[int, int]:
         0, first, reads[valid].to(starts.dtype)).sum(dtype=torch.int64))
     s = (res["row"] >> 3).clamp(0, fm.sa_uni.shape[0] - 1)
     us, p = loc.uni_start, res["pos"]
-    n_us = us.shape[0]
-    lo = torch.zeros_like(p, dtype=torch.int64)
-    hi = torch.full_like(lo, n_us)
-    probed = []
-    while bool((lo < hi).any()):
-        act = lo < hi
-        mid = (lo + hi) >> 1
-        probed.append(mid[act])
-        le = us[mid.clamp(max=n_us - 1)] <= p
-        lo = torch.where(act & le, mid + 1, lo)
-        hi = torch.where(act & ~le, mid, hi)
+    n_us, n_rl = us.shape[0], loc.reflist.shape[0]
     u = res["uni"].to(torch.int64)
-    n_rl = loc.reflist.shape[0]
+    m = locate_guess(fm, loc, rows, valid, P)
+    t = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.int64)).to(rows.device)
+    uni0, again = t(m["uni0"]), t(m["again"]).bool()
+    us_idx = [uni0, (uni0 + 1).clamp(max=n_us - 1), t(m["probed"]),
+              u[again]]
+    rl_u = torch.cat([uni0.clamp(max=loc.uni_len.shape[0] - 1), u[again]])
+    n_probes = int(m["probes"].sum()) + 2 * rows.numel()
     rp_s = loc.reflist[u.clamp(0, n_rl - 1)].to(torch.int64)
     rp_c = (rp_s[:, None] + torch.arange(P, device=u.device)).clamp(
         0, loc.refpos_global.shape[0] - 1)
-    n_probes = sum(m.numel() for m in probed)
     return (nbytes(rows, valid, *out) + SECTOR * (
-                steps + 2 * distinct_sectors(s) + distinct_sectors(*probed)
-                + distinct_sectors(u.clamp(0, n_rl - 1),
-                                   (u + 1).clamp(0, n_rl - 1))
+                steps + 2 * distinct_sectors(s) + distinct_sectors(*us_idx)
+                + distinct_sectors(rl_u.clamp(0, n_rl - 1),
+                                   (rl_u + 1).clamp(0, n_rl - 1))
                 + 2 * distinct_sectors(rp_c)),
             20 * steps + 6 * n_probes + rows.numel() * (40 + 10 * P))
+
+
+def locate_split(lib: str, args, label: str) -> dict:
+    """K6 on a captured call (args: fm, loc, rows, valid, P) split into its
+    parts, each alone (csrc/measure.cu, library lib), cold ms (L2
+    evicted, median of 20): the walk on the lanes' own rows
+    (dsb_locate_walk) beside a bare pointer chase over lfc with the same
+    gathers a lane (dsb_lf_chase: its steps, and one more where it met a
+    sentinel), the search and expansion from the walk's rows, steps and
+    ok as the path's kernel runs them (verified guess), and the path's
+    kernel (the whole). The walk's outputs must equal
+    resolve_rows', every part's outputs locate_plain's, and the path's
+    kernel the numpy model's, or the run fails. Also n_us, the guess's
+    hit share (of all lanes, of the ok ones, of the valid failed ones),
+    the routes of the lanes it missed, the warps that run a search round
+    and the most rounds a warp runs (locate_guess)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
+    from desamba_tpu_torch.ops.locate import locate_plain, resolve_rows
+
+    fm, loc, rows, valid, P = args
+    n = rows.numel()
+    dev = rows.device
+    dll = ctypes.CDLL(lib)
+    Pt, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    tab_types = kernels.KERNELS["locate"][2][:14]
+    tabs = (kernels.ptr(fm.lfc), fm.lfc.shape[0], fm.pad.shape[0],
+            kernels.ptr(fm.sa_uni), kernels.ptr(fm.sa_off),
+            fm.sa_uni.shape[0], kernels.ptr(loc.uni_start),
+            loc.uni_start.shape[0], loc.uni_len.shape[0],
+            kernels.ptr(loc.reflist), loc.reflist.numel(),
+            kernels.ptr(loc.refpos_global), kernels.ptr(loc.refpos_refid),
+            loc.refpos_global.shape[0])
+
+    def entry(name, more):
+        fn = getattr(dll, name)
+        fn.argtypes, fn.restype = tab_types + more, ctypes.c_int
+        return lambda *a: _rc(name, fn(*tabs, *a, kernels.stream(dev)))
+
+    walk_fn = entry("dsb_locate_walk", [Pt, Pt, LL, I, Pt, Pt, Pt, Pt])
+    tail_fn = entry("dsb_locate_tail", [Pt, Pt, Pt, LL, I, Pt, Pt, Pt, Pt])
+    chase = dll.dsb_lf_chase
+    chase.argtypes = [Pt, LL, Pt, Pt, LL, Pt, Pt]
+    chase.restype = ctypes.c_int
+    res = resolve_rows(fm, loc, rows, valid)
+    loads = (res["steps"] + (valid & ~res["ok"] & (res["steps"] < 25))).to(
+        torch.int32).contiguous()
+    sink = torch.empty_like(rows)
+    r, k = torch.empty_like(rows), torch.empty_like(rows)
+    ok = torch.empty_like(valid)
+    tail = (torch.empty((n, P), dtype=torch.int32, device=dev),
+            torch.empty((n, P), dtype=torch.int32, device=dev),
+            torch.empty((n, P), dtype=torch.bool, device=dev))
+    p = kernels.ptr
+    runs = dict(
+        walk=lambda: walk_fn(p(rows), p(valid), n, 24, p(r), p(k), p(ok)),
+        tail=lambda: tail_fn(p(r), p(k), p(ok), n, P, *map(p, tail)),
+        whole=lambda: KERNEL_OPS["locate"](*args),
+        walk_chase=lambda: _rc("dsb_lf_chase", chase(
+            p(fm.lfc), fm.lfc.shape[0], p(rows), p(loads), n, p(sink),
+            kernels.stream(dev))))
+    runs["walk"]()
+    whole = runs["whole"]()
+    runs["tail"]()
+    ref = locate_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(r, res["row"]) and torch.equal(k, res["steps"])
+            and torch.equal(ok, res["ok"])):
+        raise AssertionError(f"locate split at {label}: the walk alone "
+                             f"differs from resolve_rows")
+    for g, got in (("tail", tail), ("whole", whole)):
+        err = max_abs_err(got, ref)
+        if err:
+            raise AssertionError(f"locate split at {label}: {g} differs "
+                                 f"from locate_plain (max abs err {err})")
+    m = locate_guess(fm, loc, rows, valid, P)
+    for name, g in zip(("ref", "gpos", "pvalid"), whole):
+        if not (g.cpu().numpy().astype(np.int64)
+                == m[name].astype(np.int64)).all():
+            raise AssertionError(f"locate at {label}: the kernel differs "
+                                 f"from its numpy model ({name})")
+    ms = {g: cuda_ms(fn, 20, cold=True) for g, fn in runs.items()}
+    v, okn = valid.cpu().numpy(), res["ok"].cpu().numpy()
+    from test_torch_locate import GUESS, ROUTES  # on sys.path: locate_guess
+    hit = m["route"] == GUESS
+    out = dict(
+        lanes=n, n_us=int(loc.uni_start.shape[0]), ms=ms,
+        tail_share_of_whole=ms["tail"] / ms["whole"] if ms["whole"] else None,
+        hit_share=float(hit.mean()),
+        hit_share_ok=float(hit[okn].mean()) if okn.any() else None,
+        hit_share_valid_failed=float(hit[v & ~okn].mean())
+        if (v & ~okn).any() else None,
+        valid=int(v.sum()), ok=int(okn.sum()),
+        misses={name: int((m["route"] == i).sum())
+                for i, name in enumerate(ROUTES) if i != GUESS},
+        probes=int(m["probes"].sum()),
+        walk_gathers=int(loads.sum(dtype=torch.int64)),
+        warps_searching_share=float((m["warp_rounds"] > 0).mean()),
+        max_warp_rounds=int(m["warp_rounds"].max()),
+        lanes_at_25_steps=int((res["steps"] == 25).sum()))
+    log(f"smoke: locate split at {label} [n={n}, n_us={out['n_us']}]: walk "
+        f"{ms['walk']:.4f} ms (bare chase {ms['walk_chase']:.4f}), "
+        f"search+expansion {ms['tail']:.4f}, path kernel "
+        f"{ms['whole']:.4f}; guess "
+        f"holds for {out['hit_share']:.4%} of lanes (ok "
+        f"{out['hit_share_ok']}, failed {out['hit_share_valid_failed']}); "
+        f"misses {out['misses']}; {out['warps_searching_share']:.2%} of "
+        f"warps search, at most {out['max_warp_rounds']} rounds")
+    return out
+
+
+def _rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: cudaError {rc}")
 
 
 def vote_work(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
@@ -879,6 +1028,28 @@ def bound(name: str, args, out, **kw) -> tuple[float, str]:
     return bound_of(*work(name, args, out, **kw))
 
 
+# each kernel's call shape, from its captured arguments
+SHAPES = {
+    "stage1": lambda a: (f"rows={a[1].shape[0]} W={a[1].shape[1]} "
+                         f"lek={a[3]} mask_bits={a[5]}"),
+    "interval_search": lambda a: (f"n={a[6].shape[1]} "
+                                  f"W={a[1].shape[1]} steps={a[7]}"),
+    "compact": lambda a: f"n={a[0].shape[0]} cap={a[1]}",
+    "row_grid": lambda a: f"S={a[0].shape[1]} cap={a[4]}",
+    "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
+    "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
+    "vote": lambda a: (f"NC={a[0].shape[0]} B2={a[7]} "
+                       f"A={a[8] * a[0].shape[1]}"),
+    "unpack": lambda a: f"Bp={a[0].shape[0]} W={2 * a[0].shape[1]}",
+    "band_windows": lambda a: (f"rows={a[3].shape[0]} C={a[3].shape[1]} "
+                               f"W={16 * a[1].shape[1]} K={a[5]}"),
+    "combine": lambda a: (f"reads={a[4].shape[0] // 2} "
+                          f"C={a[4].shape[1]}"),
+    "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
+                                    f"W={16 * a[0].shape[1]} K={a[5]}"),
+}
+
+
 def check_kernels(cap: dict) -> dict:
     """Each kernel against its plain version on each of its captured
     calls, keyed as kernel_inputs keys them."""
@@ -886,25 +1057,6 @@ def check_kernels(cap: dict) -> dict:
 
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
-    shapes = {
-        "stage1": lambda a: (f"rows={a[1].shape[0]} W={a[1].shape[1]} "
-                             f"lek={a[3]} mask_bits={a[5]}"),
-        "interval_search": lambda a: (f"n={a[6].shape[1]} "
-                                      f"W={a[1].shape[1]} steps={a[7]}"),
-        "compact": lambda a: f"n={a[0].shape[0]} cap={a[1]}",
-        "row_grid": lambda a: f"S={a[0].shape[1]} cap={a[4]}",
-        "row_walks": lambda a: f"n={a[4].shape[1]} cap={a[5]}",
-        "locate": lambda a: f"n={a[2].shape[0]} P={a[4]}",
-        "vote": lambda a: (f"NC={a[0].shape[0]} B2={a[7]} "
-                           f"A={a[8] * a[0].shape[1]}"),
-        "unpack": lambda a: f"Bp={a[0].shape[0]} W={2 * a[0].shape[1]}",
-        "band_windows": lambda a: (f"rows={a[3].shape[0]} C={a[3].shape[1]} "
-                                   f"W={16 * a[1].shape[1]} K={a[5]}"),
-        "combine": lambda a: (f"reads={a[4].shape[0] // 2} "
-                              f"C={a[4].shape[1]}"),
-        "band_score_packed": lambda a: (f"rows={a[0].shape[0]} "
-                                        f"W={16 * a[0].shape[1]} K={a[5]}"),
-    }
     missing = [k for k in (*KERNEL_OPS, *INDEX_LIST_CALLS) if k not in cap]
     if missing:
         raise AssertionError(f"no call of {missing} was captured")
@@ -912,7 +1064,7 @@ def check_kernels(cap: dict) -> dict:
     for key, (args, kw) in cap.items():
         name = key.split("[")[0]
         kern, plain = KERNEL_OPS[name], PLAIN_OPS[name]
-        shape = shapes[name](args) + "".join(
+        shape = SHAPES[name](args) + "".join(
             f" {k}={v.numel()}" for k, v in kw.items())
         fn, prep = in_place_call(name, kern, args, kw)
         if prep is not None:
@@ -942,8 +1094,8 @@ def check_kernels(cap: dict) -> dict:
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             + (f", torch.nonzero {library_ms:.4f} ms"
                if library_ms is not None else "")
-            + (f", full-build bound {out[key]['bound_old_ms']:.4f} ms"
-               if name == "stage1" else ""))
+            + (f", earlier bound {out[key]['bound_old_ms']:.4f} ms"
+               if "bound_old_ms" in out[key] else ""))
     return out
 
 
@@ -953,11 +1105,17 @@ def stage1_old_bound(args, out) -> float:
     return bound_of(*stage1_work(args, out, rolled=False))[0]
 
 
+# another chunk's calls that check_chunk_calls holds and times: stage 1,
+# K2's three, the compactions' first and first through a source list,
+# the row grid and locate
+CHUNK_CALLS = ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2",
+               "compact", "compact[src]", "row_grid", "locate")
+
+
 def check_chunk_calls(cap: dict, label: str) -> dict:
-    """Stage 1 and K2's three calls (the burst, the mid and the tail
-    resume) on another chunk's captured calls (kernel_inputs), each held
-    to its plain version (equal exactly, one launch a call, or the run
-    fails) and timed with L2 evicted beside its bound; stage 1 also
+    """CHUNK_CALLS on another chunk's captured calls (kernel_inputs), each
+    held to its plain version (equal exactly, one launch a call, or the
+    run fails) and timed with L2 evicted beside its bound; stage 1 also
     beside the full-build bound."""
     import torch
 
@@ -965,7 +1123,7 @@ def check_chunk_calls(cap: dict, label: str) -> dict:
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
     out = {}
-    for key in ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2"):
+    for key in CHUNK_CALLS:
         args, kw = cap[key]
         name = key.split("[")[0]
         fn, prep = in_place_call(name, KERNEL_OPS[name], args, kw)
@@ -983,18 +1141,50 @@ def check_chunk_calls(cap: dict, label: str) -> dict:
         bound_ms, bound_by = bound(name, args, ref, **kw)
         r = out[key] = dict(max_abs_err=err,
                             ms=cuda_ms(fn, 20, cold=True, prep=prep),
-                            bound_ms=bound_ms, bound_by=bound_by)
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            shape=SHAPES[name](args) + "".join(
+                                f" {k}={v.numel()}" for k, v in kw.items()))
         if name == "stage1":
             r["bound_old_ms"] = stage1_old_bound(args, ref)
-            r["shape"] = f"rows={args[1].shape[0]} W={args[1].shape[1]}"
-        else:
-            r["shape"] = f"n={args[4].shape[1]} cap={args[5]}" + (
-                f" sel={kw['sel'].numel()}" if kw else "")
         log(f"smoke: {key} at {label} [{r['shape']}] equal; kernel "
             f"{r['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-            + (f", full-build bound {r['bound_old_ms']:.4f} ms"
-               if name == "stage1" else ""))
+            + (f", earlier bound {r['bound_old_ms']:.4f} ms"
+               if "bound_old_ms" in r else ""))
     return out
+
+
+def check_scan_back_to_back(caps: list) -> dict:
+    """compact's and row_grid's captured calls of every chunk (caps: the
+    kernel_inputs of each) launched back to back on one stream, with no
+    synchronize between them, so that each call's scan meets the flags
+    the calls before it left in the shared scratch: each must equal its
+    plain version, one launch a call, or the run fails."""
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
+
+    calls = [(key, *c[key]) for c in caps for key in c
+             if key.split("[")[0] in ("compact", "row_grid")]
+    before = dict(kernels.launches)
+    got = [KERNEL_OPS[key.split("[")[0]](*args, **kw)
+           for key, args, kw in calls]
+    torch.cuda.synchronize()
+    sizes = []
+    for (key, args, kw), g in zip(calls, got):
+        err = max_abs_err(g, PLAIN_OPS[key.split("[")[0]](*args, **kw))
+        if err:
+            raise AssertionError(f"{key} back to back: kernel differs from "
+                                 f"its plain version (max abs err {err})")
+        sizes.append(SHAPES[key.split("[")[0]](args))
+    for name in ("compact", "row_grid"):
+        if kernels.launches[name] - before[name] != sum(
+                k.split("[")[0] == name for k, _, _ in calls):
+            raise AssertionError(f"{name} back to back: launched other "
+                                 f"than once a call")
+    log(f"smoke: compact and row_grid, {len(calls)} calls back to back on "
+        f"one stream, each equal to its plain version")
+    return dict(calls=len(calls), shapes=sizes)
 
 
 def check_stage1_cases() -> dict:
@@ -1573,7 +1763,8 @@ def spread(xs) -> dict:
                 runs=list(xs))
 
 
-def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
+def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
+                  measure: str) -> dict:
     """Phase 7: the genome-sharded classifier (load_sharded_fast) on the
     card, the bench community in N_SHARDS genome shards. The merge (K11)
     against its plain version on each chunk's stacked shard results
@@ -1717,14 +1908,18 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
 
     # where the time goes: the first chunk of the narrowest bucket, stage
     # by stage on each shard (stage 0 is the sharded chunk's one call),
-    # the sharded chunk whole, and one profiled pure-device batch
+    # the sharded chunk whole, and one profiled pure-device batch; locate
+    # on each shard split into its parts (locate_split)
     W, (packed, lens, n_chunk) = min(first_chunks(scl, reads).items())
-    stages = {}
+    stages, splits = {}, {}
     for s, (fm, ek_s, loc, ra) in enumerate(scl.shards):
         one = SimpleNamespace(fm=fm, ek=ek_s, loc=loc, ra=ra,
                               device=scl.device, _full=build_full(
                                   ek.lek, ek.single_base_max, ek.mask_bits,
                                   20, ek.n_words0))
+        splits[f"shard {s} W={W}"] = locate_split(
+            measure, kernel_inputs(one, packed, lens)["locate"][0],
+            f"shard {s} W={W}")
         fns, _ = stage_calls(one, packed, lens, KERNEL_OPS)
         for st, fn in fns.items():
             if st == "0 unpack" and s > 0:
@@ -1769,6 +1964,7 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids) -> dict:
         differ_from_monolithic_examples=differ[:10],
         differ_from_monolithic_device_only=differ_dev,
         stages_first_chunk=dict(W=W, reads=n_chunk, stages=stages),
+        locate_split=splits,
         batch=dict(batch, device_busy_share=None if busy is None else
                    busy / (1e3 * n / spread(rates_dev)["median"]),
                    wall_ms_two_calls=wall_ms, merge_ms=m_ms,
@@ -2125,6 +2321,8 @@ def main() -> int:
     cap = kernel_inputs(cl, *chunks[min(chunks)][:2])
     checks = check_kernels(cap)
     measure = info["measure.cu"]["path"]
+    splits = {f"W={min(chunks)}": locate_split(measure, cap["locate"][0],
+                                               f"W={min(chunks)}")}
     sweep = walk_sweep(measure, cap["row_walks"][0])
     s1_args = cap["stage1"][0]
     floors = {f"W={min(chunks)}": stage1_floor(
@@ -2143,10 +2341,19 @@ def main() -> int:
                                         PLAIN_OPS["stage1"](*s1_args))
     more = {f"W={W}": check_chunk_calls(c, f"W={W}")
             for W, c in sorted(caps.items())}
+    for W in sorted(chunks)[1:]:
+        splits[f"W={W}"] = locate_split(measure, caps[W]["locate"][0],
+                                        f"W={W}")
+    back_to_back = check_scan_back_to_back([cap, *caps.values()])
+    print("locate_split " + json.dumps(dict(card=card, **splits)),
+          flush=True)
     print("stage1_row_walks " + json.dumps(dict(
         card=card, first_chunk={k: checks[k] for k in checks
                                 if k.startswith(("stage1", "row_walks"))},
-        other_chunks=more, row_walks_cap_sweep=sweep,
+        other_chunks={W: {k: v for k, v in c.items()
+                          if k.startswith(("stage1", "row_walks"))}
+                      for W, c in more.items()},
+        row_walks_cap_sweep=sweep,
         stage1_bloom_floor=floors, stage1_cases=s1_cases)), flush=True)
     band_checks = check_band(cl, caps, sass)
     k8_args = cap["band_score_packed"][0]
@@ -2318,8 +2525,16 @@ def main() -> int:
         bloom_floor=floors, cases=s1_cases)
     rows[names.index("row_walks")].update(
         ptxas=ptxas["row_walks"], cap_sweep=sweep,
-        other_calls={W: {k: v for k, v in c.items() if k != "stage1"}
+        other_calls={W: {k: v for k, v in c.items()
+                         if k.startswith("row_walks")}
                      for W, c in more.items()})
+    for k in ("compact", "row_grid", "locate"):
+        rows[names.index(k)]["other_calls"] = {
+            W: {key: v for key, v in c.items() if key.split("[")[0] == k}
+            for W, c in more.items()}
+    for k in ("compact", "row_grid"):
+        rows[names.index(k)]["back_to_back"] = back_to_back
+    rows[names.index("locate")]["split"] = splits
     k8 = rows[names.index("band_score_packed")]
     k8.update(bound_old_ms=checks["band_score_packed"]["bound_old_ms"],
               sass=sass, other_calls=band_checks)
@@ -2328,7 +2543,9 @@ def main() -> int:
              for k in ("probe_reads", "row_walks_trace")]
 
     # ---- phase 7: the genome-sharded classifier
-    sh = sharded_phase(cl, reads, fa, card, res, res_dev, native_tids)
+    sh = sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
+                       measure)
+    rows[names.index("locate")]["split"].update(sh["locate_split"])
     print("sharded " + json.dumps(sh), flush=True)
     rows.append(dict(name="shard_merge", route="cuda",
                      source=kernels.source_path("shard_merge"),

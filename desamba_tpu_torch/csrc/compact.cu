@@ -1,5 +1,5 @@
 // Stage 2's capped, stable prefix compactions, as two kernels that share
-// one two-launch scan.
+// one single-pass scan.
 //
 // Replaces the cumsum / scatter-with-drop compactions of
 // desamba_tpu/engine/fast_engine.py:_build_stages.stage2 (:237-264 for
@@ -26,21 +26,37 @@
 // entry past the cap is dropped, as JAX's scatter with mode="drop" drops
 // it.
 //
-// The scan: launch 1 counts each block's live entries (one __ballot_sync
-// and __popc a warp, a sum over the block's 32 warps). Launch 2 re-reads
-// the entries; each block sums the counts of the blocks before it (and of
-// all blocks, for the fill), ranks its live entries by the ballot bits
-// below each lane plus an exclusive prefix over its warps in shared
-// memory, writes each kept entry to its slot, and writes the fill to the
-// slots past the live total with a grid-stride loop.
+// The scan: one launch, a single pass with decoupled look-back. Each
+// block takes its index from an atomic ticket, so that it waits only on
+// blocks that started before it. It counts its live entries (1,024
+// threads of kItems consecutive ones: a prefix over the warp's threads,
+// then over the block's 32 warps), publishes
+// the count, then looks back over the flags of the blocks before it, 32
+// at a time, summing counts until it meets a published inclusive prefix;
+// it publishes its own inclusive prefix and writes each kept entry to its
+// slot. The blocks past the scan's (fill blocks, taking the last tickets)
+// wait for the last scan block's inclusive prefix, the live total, and
+// write the fill to the slots past min(total, cap), kFillSpan slots a
+// block. The block that takes the last ticket sets the ticket back to 0
+// for the next call on the stream.
+//
+// Scratch: uint64 words, word 0 the ticket, word 1 + b block b's flag:
+// (call << 34) | (status << 32) | value, status 1 a block's count and 2
+// its inclusive prefix. The wrapper passes a call number that it
+// increments each call (1 .. 2^30 - 1; ops/compact.py), so a flag left by
+// an earlier call, with another m, never reads as ready, and the scratch
+// needs no memset between calls.
 //
 // What bounds it on this card: the bytes of the entries (4 a lane; the
 // row grid reads 4 carry rows, the mask and two int32 rows a lane) and,
-// at stage 2's sizes (S = 172,032 lanes, 168 blocks of 1,024), the two
-// launches. The design reads each entry once a launch, keeps the prefix
-// in registers and shared memory, and needs no scratch but one int32 a
-// block. The caller passes that scratch and its length; the entry points
-// refuse one shorter than the scan's blocks of kThreads.
+// at stage 2's sizes (172,032 lanes, 344,064 grid entries), the launch
+// and the chain of look-backs. The design reads each entry once, keeps
+// the prefix in registers and shared memory, and launches once a call;
+// over a dense row, four entries a thread put every block of a call (42
+// or 84 of them, and the fill blocks) on the card in one wave, and the
+// look-back crosses at most three windows of 32 flags; a source list
+// (21,504 entries) takes one a thread, so that its random gathers of
+// done spread over 21 SMs, not 6.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -50,6 +66,12 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+// consecutive entries a thread: four over a dense row (the mask, the row
+// grid), so that a call's blocks fit the card in one wave; one over a
+// source list, whose entries gather done at random and go faster spread
+// over more SMs
+constexpr int kDenseItems = 4;  // SCAN_BLOCK = kThreads * kDenseItems
+constexpr int kListItems = 1;   // LIST_BLOCK = kThreads * kListItems
 constexpr unsigned kFull = 0xffffffffu;
 
 using dsb::add_wrap;
@@ -89,16 +111,17 @@ struct RowGrid {
   __device__ int sp(long long s) const { return st[2 * S + s]; }
   __device__ int ep(long long s) const { return st[3 * S + s]; }
 
+  // entries are below 2^31 (the wrapper checks S * R): 32-bit index math
   __device__ bool live(long long e) const {
-    const long long s = e / R;
-    const int k = static_cast<int>(e - s * R);
+    const unsigned s = static_cast<unsigned>(e) / static_cast<unsigned>(R);
+    const int k = static_cast<int>(static_cast<unsigned>(e) - s * R);
     const int a = sp(s), b = ep(s);
     return seed_ok[s] != 0 && a < b && add_wrap(a, k) < b;
   }
   // slot <- grid entry e (e = S * R - 1 for the fill), whose sel is v
   __device__ void put(int slot, long long e, int v, bool valid) const {
-    const long long s = e / R;
-    const int k = static_cast<int>(e - s * R);
+    const unsigned s = static_cast<unsigned>(e) / static_cast<unsigned>(R);
+    const int k = static_cast<int>(static_cast<unsigned>(e) - s * R);
     const int ml = st[4 * S + s];
     const int rem = sub_wrap(s_idx[s], ml);
     sel[slot] = v;
@@ -120,140 +143,218 @@ struct RowGrid {
   }
 };
 
-// launch 1: the live entries of each block of kThreads
-template <class E>
-__device__ void count_block(const E& e, long long m, int* counts) {
-  __shared__ int warp_n[kWarps];
-  const long long j = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  const unsigned bits = __ballot_sync(kFull, j < m && e.live(j));
-  if ((threadIdx.x & 31) == 0) warp_n[threadIdx.x >> 5] = __popc(bits);
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int v = warp_n[threadIdx.x];
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-    if (threadIdx.x == 0) counts[blockIdx.x] = v;
+constexpr unsigned long long kCount = 1ull << 32;   // status 1
+constexpr unsigned long long kPrefix = 2ull << 32;  // status 2
+constexpr int kCallShift = 34;
+// slots of the fill a fill block writes (FILL_SPAN in ops/compact.py)
+constexpr int kFillSpan = 4 * kThreads;
+
+__device__ __forceinline__ unsigned long long load_flag(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_flag(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// The live total: the inclusive prefix of the last scan block, once it is
+// published (it started before any fill block took its ticket).
+__device__ unsigned live_total(const unsigned long long* flags,
+                               unsigned last, unsigned long long tag) {
+  for (;;) {
+    const unsigned long long f = load_flag(flags + last);
+    if ((f & ~0xffffffffull) == (tag | kPrefix))
+      return static_cast<unsigned>(f);
   }
 }
 
-// launch 2: each live entry to its slot, then the fill
-template <class E>
-__device__ void scatter_block(const E& e, long long m, const int* counts,
-                              int cap) {
+// Warp 0: the sum of the counts of blocks [0, b), from their flags.
+__device__ unsigned look_back(const unsigned long long* flags, unsigned b,
+                              unsigned long long tag, int lane) {
+  unsigned excl = 0;
+  long long look = static_cast<long long>(b) - 1;
+  for (;;) {
+    const long long idx = look - lane;  // lane 0: the nearest block
+    unsigned long long f;
+    for (;;) {
+      f = idx >= 0 ? load_flag(flags + idx) : (tag | kPrefix);
+      const bool ready = (f >> kCallShift) == (tag >> kCallShift) &&
+                         (f & (3ull << 32)) != 0;
+      if (__all_sync(kFull, ready)) break;
+    }
+    const unsigned pre = __ballot_sync(kFull, (f & kPrefix) != 0);
+    // the counts up to and including the nearest inclusive prefix
+    const int stop = pre ? __ffs(pre) - 1 : 31;
+    excl += __reduce_add_sync(kFull,
+                              lane <= stop ? static_cast<unsigned>(f) : 0u);
+    if (pre) return excl;
+    look -= 32;
+  }
+}
+
+// One block of the scan (blockIdx ignored: the ticket orders the blocks).
+// scan_blocks blocks cover the m entries, kThreads * kItems each (kItems
+// consecutive entries a thread); the rest fill.
+template <int kItems, class E>
+__device__ void scan_block(const E& e, long long m, int cap,
+                           unsigned long long* scratch, unsigned scan_blocks,
+                           unsigned call) {
   __shared__ int warp_off[kWarps];
-  __shared__ int block_base, live_total;
+  __shared__ unsigned s_ticket, block_base, s_total;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long j = blockIdx.x * static_cast<long long>(kThreads) +
-                      threadIdx.x;
-  const bool live = j < m && e.live(j);
-  const unsigned bits = __ballot_sync(kFull, live);
-  if (lane == 0) warp_off[warp] = __popc(bits);
-  if (warp == 0) {  // the blocks before this one, and all of them
-    int before = 0, all = 0;
-    for (unsigned b = lane; b < gridDim.x; b += 32) {
-      const int c = counts[b];
-      all += c;
-      if (b < blockIdx.x) before += c;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      before += __shfl_down_sync(kFull, before, o);
-      all += __shfl_down_sync(kFull, all, o);
-    }
-    if (lane == 0) {
-      block_base = before;
-      live_total = all;
-    }
+  if (threadIdx.x == 0) {
+    const unsigned t =
+        static_cast<unsigned>(atomicAdd(scratch, 1ull));
+    if (t == gridDim.x - 1) atomicExch(scratch, 0ull);  // the next call's
+    s_ticket = t;
   }
   __syncthreads();
-  if (warp == 0) {  // exclusive prefix over the block's warps
+  const unsigned b = s_ticket;
+  unsigned long long* flags = scratch + 1;
+  const unsigned long long tag =
+      static_cast<unsigned long long>(call) << kCallShift;
+  if (b >= scan_blocks) {  // a fill block
+    if (threadIdx.x == 0) s_total = live_total(flags, scan_blocks - 1, tag);
+    __syncthreads();
+    const long long used = s_total < static_cast<unsigned>(cap)
+                               ? static_cast<long long>(s_total)
+                               : cap;
+    const long long lo = static_cast<long long>(b - scan_blocks) * kFillSpan;
+    const long long from = lo > used ? lo : used;
+    const long long to = lo + kFillSpan < cap ? lo + kFillSpan : cap;
+    for (long long k = from + threadIdx.x; k < to; k += kThreads)
+      e.fill(static_cast<int>(k));
+    return;
+  }
+  // the thread's kItems entries: bit q of mine where entry j0 + q lives
+  const long long j0 = b * static_cast<long long>(kThreads * kItems) +
+                       threadIdx.x * kItems;
+  unsigned mine = 0;
+#pragma unroll
+  for (int q = 0; q < kItems; ++q)
+    if (j0 + q < m && e.live(j0 + q)) mine |= 1u << q;
+  // inclusive prefix of the live counts over the warp's threads
+  const int c = __popc(mine);
+  int incl = c;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_off[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    // exclusive prefix over the block's warps, the block's count, and
+    // the blocks before it
     const int v = warp_off[lane];
-    int incl = v;
+    int w_incl = v;
     for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += u;
+      const int u = __shfl_up_sync(kFull, w_incl, o);
+      if (lane >= o) w_incl += u;
     }
-    warp_off[lane] = incl - v;
+    warp_off[lane] = w_incl - v;
+    const unsigned count =
+        __shfl_sync(kFull, static_cast<unsigned>(w_incl), 31);
+    unsigned excl = 0;
+    if (b == 0) {
+      if (lane == 0) store_flag(flags, tag | kPrefix | count);
+    } else {
+      if (lane == 0) store_flag(flags + b, tag | kCount | count);
+      excl = look_back(flags, b, tag, lane);
+      if (lane == 0) store_flag(flags + b, tag | kPrefix | (excl + count));
+    }
+    if (lane == 0) block_base = excl;
   }
   __syncthreads();
-  if (live) {
-    const int slot = block_base + warp_off[warp] +
-                     __popc(bits & ((1u << lane) - 1u));
-    if (slot < cap) e.keep(slot, j);
+  const unsigned first = block_base + warp_off[warp] + (incl - c);
+#pragma unroll
+  for (int q = 0; q < kItems; ++q) {
+    if ((mine >> q) & 1u) {
+      const unsigned slot = first + __popc(mine & ((1u << q) - 1u));
+      if (slot < static_cast<unsigned>(cap))
+        e.keep(static_cast<int>(slot), j0 + q);
+    }
   }
-  const int used = live_total < cap ? live_total : cap;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long k = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       k < cap; k += stride)
-    if (k >= used) e.fill(static_cast<int>(k));
+}
+
+template <int kItems>
+__global__ void __launch_bounds__(kThreads)
+    compact_kernel(Lanes e, long long m, int cap,
+                   unsigned long long* scratch, unsigned scan_blocks,
+                   unsigned call) {
+  scan_block<kItems>(e, m, cap, scratch, scan_blocks, call);
 }
 
 __global__ void __launch_bounds__(kThreads)
-    compact_count_kernel(Lanes e, long long m, int* counts) {
-  count_block(e, m, counts);
+    row_grid_kernel(RowGrid e, long long m, int cap,
+                    unsigned long long* scratch, unsigned scan_blocks,
+                    unsigned call) {
+  scan_block<kDenseItems>(e, m, cap, scratch, scan_blocks, call);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    compact_scatter_kernel(Lanes e, long long m, const int* counts,
-                           int cap) {
-  scatter_block(e, m, counts, cap);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    row_grid_count_kernel(RowGrid e, long long m, int* counts) {
-  count_block(e, m, counts);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    row_grid_scatter_kernel(RowGrid e, long long m, const int* counts,
-                            int cap) {
-  scatter_block(e, m, counts, cap);
-}
-
-// blocks of the scan over m entries: at least one, for the fill
-unsigned scan_blocks(long long m) {
-  const long long b = (m + kThreads - 1) / kThreads;
+// blocks of the scan over m entries, kItems a thread (at least one block,
+// whose prefix is the live total), and the fill blocks after them
+unsigned scan_blocks(long long m, int items) {
+  const long long per = static_cast<long long>(kThreads) * items;
+  const long long b = (m + per - 1) / per;
   return static_cast<unsigned>(b > 0 ? b : 1);
+}
+
+unsigned fill_blocks(int cap) {
+  return static_cast<unsigned>((cap + kFillSpan - 1) / kFillSpan);
+}
+
+constexpr unsigned kCallLimit = 1u << 30;
+
+// scratch: n_scratch uint64 words, at least 1 + scan_blocks(entries,
+// items); call: 1 .. 2^30 - 1, another than any flag the scratch holds. A
+// shorter scratch, or a call number out of range, is refused with
+// cudaErrorInvalidValue.
+template <class K, class E>
+int launch(K kernel, int items, const E& e, long long entries, int cap,
+           void* scratch, long long n_scratch, unsigned call, void* stream) {
+  const unsigned blocks = scan_blocks(entries, items);
+  if (cap < 1 || n_scratch < 1 + static_cast<long long>(blocks) ||
+      call == 0 || call >= kCallLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<blocks + fill_blocks(cap), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      e, entries, cap, static_cast<unsigned long long*>(scratch), blocks,
+      call);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// counts: int32[n_counts] scratch, at least scan_blocks(m) long, m = n
-// (src null) or m (src); a shorter one is refused with cudaErrorInvalidValue
 extern "C" int dsb_compact(const void* done, long long n, const void* src,
-                           long long m, int cap, void* counts,
-                           long long n_counts, void* out, void* stream) {
+                           long long m, int cap, void* scratch,
+                           long long n_scratch, unsigned call, void* out,
+                           void* stream) {
   const Lanes e{static_cast<const int*>(done), n,
                 static_cast<const int*>(src), static_cast<int*>(out)};
-  const long long entries = src == nullptr ? n : m;
-  const unsigned blocks = scan_blocks(entries);
-  if (n_counts < blocks) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  compact_count_kernel<<<blocks, kThreads, 0, s>>>(
-      e, entries, static_cast<int*>(counts));
-  compact_scatter_kernel<<<blocks, kThreads, 0, s>>>(
-      e, entries, static_cast<const int*>(counts), cap);
-  return static_cast<int>(cudaGetLastError());
+  if (src == nullptr)
+    return launch(compact_kernel<kDenseItems>, kDenseItems, e, n, cap,
+                  scratch, n_scratch, call, stream);
+  return launch(compact_kernel<kListItems>, kListItems, e, m, cap, scratch,
+                n_scratch, call, stream);
 }
 
-// counts: int32[n_counts] scratch, at least scan_blocks(S * R) long
 extern "C" int dsb_row_grid(const void* st, const void* seed_ok,
                             const void* lane, const void* s_idx, long long S,
-                            int R, int cap, void* counts, long long n_counts,
-                            void* sel, void* walk, void* wl, void* stream) {
+                            int R, int cap, void* scratch,
+                            long long n_scratch, unsigned call, void* sel,
+                            void* walk, void* wl, void* stream) {
   const RowGrid e{static_cast<const int*>(st),
                   static_cast<const unsigned char*>(seed_ok),
                   static_cast<const int*>(lane),
                   static_cast<const int*>(s_idx), S, R,
                   static_cast<int*>(sel), static_cast<int*>(walk),
                   static_cast<int*>(wl), cap};
-  const long long entries = S * R;
-  const unsigned blocks = scan_blocks(entries);
-  if (n_counts < blocks) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  row_grid_count_kernel<<<blocks, kThreads, 0, s>>>(
-      e, entries, static_cast<int*>(counts));
-  row_grid_scatter_kernel<<<blocks, kThreads, 0, s>>>(
-      e, entries, static_cast<const int*>(counts), cap);
-  return static_cast<int>(cudaGetLastError());
+  return launch(row_grid_kernel, kDenseItems, e, S * R, cap, scratch,
+                n_scratch, call, stream);
 }

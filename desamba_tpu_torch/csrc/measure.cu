@@ -12,19 +12,19 @@
 // dsb_lf_chase: K2's chain alone (csrc/row_walks.cu). Lane i takes
 // loads[i] dependent gathers over lfc from row start[i], as a walk that
 // takes those steps does, with no compare.
+//
+// K6's parts (csrc/locate.cu, device code in locate.cuh), each alone:
+// dsb_locate_walk, the walk on the lanes' own rows (each lane's final row,
+// steps and ok out); and dsb_locate_tail, the search and the expansion
+// from those (tail_guess, as the path's kernel runs it).
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "locate.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kLfcRowMask = (1u << 29) - 1u;  // row_walks.cu kLfcShift
-
-// JAX gather semantics: negative indices count from the end, then clamp.
-__device__ __forceinline__ long long jax_index(long long i, long long n) {
-  if (i < 0) i += n;
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
 
 __global__ void bloom_gather_kernel(const unsigned* __restrict__ w01,
                                     const unsigned* __restrict__ a1,
@@ -54,11 +54,103 @@ __global__ void lf_chase_kernel(const unsigned* __restrict__ lfc,
   int sp = start[i];
   const int k = loads[i];
   for (int it = 0; it < k; ++it)
-    sp = static_cast<int>(__ldg(lfc + jax_index(sp, n_rows)) & kLfcRowMask);
+    sp = static_cast<int>(__ldg(lfc + dsb::jax_index(sp, n_rows)) &
+                           dsb::kLfcRowMask);
   out[i] = sp;
 }
 
+__global__ void locate_walk_kernel(dsb::LocTables t,
+                                   const int* __restrict__ rows,
+                                   const unsigned char* __restrict__ valid,
+                                   long long n, int max_lf,
+                                   int* __restrict__ r_out,
+                                   int* __restrict__ k_out,
+                                   unsigned char* __restrict__ ok_out) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  int r = rows[i], k = 0;
+  ok_out[i] = dsb::walk(t, valid[i] != 0, max_lf, r, k) ? 1 : 0;
+  r_out[i] = r;
+  k_out[i] = k;
+}
+
+__global__ void locate_tail_kernel(dsb::LocTables t,
+                                   const int* __restrict__ r_in,
+                                   const int* __restrict__ k_in,
+                                   const unsigned char* __restrict__ ok_in,
+                                   long long n, int P,
+                                   int* __restrict__ ref_out,
+                                   int* __restrict__ gpos_out,
+                                   unsigned char* __restrict__ pv_out) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  const bool in = i < n;
+  const int r = in ? r_in[i] : 0, k = in ? k_in[i] : 0;
+  const bool ok = in && ok_in[i] != 0;
+  dsb::tail_guess(t, i, in, r, k, ok, P, ref_out, gpos_out, pv_out);
+}
+
+dsb::LocTables loc_tables(const void* lfc, long long n_lfc, long long n_pad,
+                          const void* sa_uni, const void* sa_off,
+                          long long n_sa, const void* uni_start,
+                          long long n_us, long long n_ul, const void* reflist,
+                          long long n_rl, const void* refpos_global,
+                          const void* refpos_refid, long long n_rp) {
+  return dsb::LocTables{static_cast<const unsigned*>(lfc), n_lfc, n_pad,
+                        static_cast<const int*>(sa_uni),
+                        static_cast<const int*>(sa_off), n_sa,
+                        static_cast<const int*>(uni_start), n_us, n_ul,
+                        static_cast<const int*>(reflist), n_rl,
+                        static_cast<const int*>(refpos_global),
+                        static_cast<const int*>(refpos_refid), n_rp};
+}
+
+constexpr int kLocThreads = 256;
+
+unsigned loc_blocks(long long n) {
+  return static_cast<unsigned>((n + kLocThreads - 1) / kLocThreads);
+}
+
 }  // namespace
+
+// The tables' arguments of each locate entry point are dsb_locate's.
+#define DSB_LOC_TABLE_ARGS                                                 \
+  const void *lfc, long long n_lfc, long long n_pad, const void *sa_uni,  \
+      const void *sa_off, long long n_sa, const void *uni_start,          \
+      long long n_us, long long n_ul, const void *reflist, long long n_rl, \
+      const void *refpos_global, const void *refpos_refid, long long n_rp
+#define DSB_LOC_TABLES                                                     \
+  loc_tables(lfc, n_lfc, n_pad, sa_uni, sa_off, n_sa, uni_start, n_us,    \
+             n_ul, reflist, n_rl, refpos_global, refpos_refid, n_rp)
+
+extern "C" int dsb_locate_walk(DSB_LOC_TABLE_ARGS, const void* rows,
+                               const void* valid, long long n, int max_lf,
+                               void* r_out, void* k_out, void* ok_out,
+                               void* stream) {
+  if (n > 0)
+    locate_walk_kernel<<<loc_blocks(n), kLocThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        DSB_LOC_TABLES, static_cast<const int*>(rows),
+        static_cast<const unsigned char*>(valid), n, max_lf,
+        static_cast<int*>(r_out), static_cast<int*>(k_out),
+        static_cast<unsigned char*>(ok_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsb_locate_tail(DSB_LOC_TABLE_ARGS, const void* r,
+                               const void* k, const void* ok, long long n,
+                               int P, void* ref_out, void* gpos_out,
+                               void* pvalid_out, void* stream) {
+  if (n > 0)
+    locate_tail_kernel<<<loc_blocks(n), kLocThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        DSB_LOC_TABLES, static_cast<const int*>(r),
+        static_cast<const int*>(k), static_cast<const unsigned char*>(ok), n,
+        P, static_cast<int*>(ref_out), static_cast<int*>(gpos_out),
+        static_cast<unsigned char*>(pvalid_out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int dsb_bloom_gather(const void* w01, const void* a1,
                                 const void* a2, const void* sh, long long m,

@@ -29,7 +29,8 @@ BUILD_DIR = os.environ.get(
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                   ctypes.c_longlong)
 # kernel name -> (source file, C entry point, argtypes), in pipeline order
 KERNELS = {
     "unpack": (
@@ -41,10 +42,11 @@ KERNELS = {
         "fm_search.cu", "dsb_interval_search",
         [_P, _LL, _P, _P, _I, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _I, _P]),
     "compact": (
-        "compact.cu", "dsb_compact", [_P, _LL, _P, _LL, _I, _P, _LL, _P, _P]),
+        "compact.cu", "dsb_compact",
+        [_P, _LL, _P, _LL, _I, _P, _LL, _U, _P, _P]),
     "row_grid": (
         "compact.cu", "dsb_row_grid",
-        [_P, _P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P]),
+        [_P, _P, _P, _P, _LL, _I, _I, _P, _LL, _U, _P, _P, _P, _P]),
     "row_walks": (
         "row_walks.cu", "dsb_row_walks",
         [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _P, _LL, _I, _P]),

@@ -5,9 +5,11 @@ desamba_tpu/engine/fast_engine.py's stage 2 (:237-264, :287-341).
 `compact` keeps the first `cap` live lanes of a carry, in lane order;
 `row_grid` keeps the first `cap` valid rows of the seed lanes' final
 intervals and writes the row walks' start carry. Each has a hand-written
-CUDA kernel (csrc/compact.cu) and a plain torch version; the wrapper runs
-the plain version for tensors on the CPU, and for CUDA tensors it
-launches the kernel or raises.
+CUDA kernel (csrc/compact.cu, one single-pass scan, one launch a call)
+and a plain torch version; the wrapper runs the plain version for
+tensors on the CPU, and for CUDA tensors it launches the kernel or
+raises. The kernels share a scratch for each device and stream
+(ScanScratch), which the wrappers keep.
 """
 from __future__ import annotations
 
@@ -18,9 +20,66 @@ from ..constants import ROWS_PER_SEARCH as R
 from .fm import rw_init
 
 I32 = torch.int32
-# entries a block of the kernels' scan; it sizes their scratch of one
-# int32 a block, which compact.cu checks against its own block size
-SCAN_BLOCK = 1024
+# entries a block of the kernels' scan over a dense row (compact.cu: 1,024
+# threads of kDenseItems = 4) and over a source list (kListItems = 1), and
+# slots of the fill a fill block writes (kFillSpan)
+SCAN_BLOCK = 4096
+LIST_BLOCK = 1024
+FILL_SPAN = 4096
+# call numbers run 1 .. CALL_LIMIT - 1 (compact.cu kCallLimit: 30 bits of
+# a flag word)
+CALL_LIMIT = 1 << 30
+
+
+def scan_blocks(m: int, block: int = SCAN_BLOCK) -> int:
+    """Scan blocks of `block` entries over m entries: at least one, whose
+    prefix is the live total."""
+    return max(1, -(-m // block))
+
+
+class ScanScratch:
+    """The scan's scratch on one device and stream: `words`, int64 holding
+    uint64 bits, word 0 the ticket and word 1 + b block b's flag
+    ((call << 34) | (status << 32) | value), and `call`, the number of the
+    last call. Zeroed once when made; a call needs no memset, because
+    each call tags its flags with a number no earlier flag carries. When
+    the number would reach CALL_LIMIT, take() zeroes the words (one memset
+    on the stream, once in 2^30 - 1 calls) and numbering starts again at
+    1, so no flag of an earlier cycle can read as ready."""
+
+    def __init__(self, device, call: int = 0):
+        self.words = torch.zeros(2, dtype=torch.int64, device=device)
+        self.call = call
+
+    def take(self, m: int, block: int = SCAN_BLOCK) -> tuple[torch.Tensor,
+                                                            int]:
+        """(words, call number) for a call over m entries in blocks of
+        `block`; the words grow (zeroed) to hold the call's blocks."""
+        need = 1 + scan_blocks(m, block)
+        if self.words.numel() < need:
+            self.words = torch.zeros(max(need, 2 * self.words.numel()),
+                                     dtype=torch.int64,
+                                     device=self.words.device)
+        self.call += 1
+        if self.call >= CALL_LIMIT:
+            self.words.zero_()
+            self.call = 1
+        return self.words, self.call
+
+
+_scratch: dict = {}  # (device index, stream handle) -> ScanScratch
+
+
+def scan_scratch(dev) -> ScanScratch:
+    """The ScanScratch of dev's current stream: calls on one stream run in
+    order, so they can share it."""
+    dev = torch.device(dev)
+    if dev.index is None:  # "cuda": the current device, as a tensor names it
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _scratch:
+        _scratch[key] = ScanScratch(dev)
+    return _scratch[key]
 
 
 def _first(live: torch.Tensor, vals: torch.Tensor, cap: int,
@@ -64,11 +123,14 @@ def compact(done: torch.Tensor, cap: int,
     if not kernels.launch_device(done):
         return compact_plain(done, cap, src)
     m = n if src is None else src.numel()
+    if m >= 2**31:
+        raise ValueError(f"{m} entries: int32 slots")
     out = torch.empty(cap, dtype=I32, device=dev)
-    counts = torch.empty(max(1, -(-m // SCAN_BLOCK)), dtype=I32, device=dev)
     with torch.cuda.device(dev):
+        words, call = scan_scratch(dev).take(
+            m, SCAN_BLOCK if src is None else LIST_BLOCK)
         kernels.call("compact", kernels.ptr(done), n, kernels.ptr(src), m,
-                     int(cap), kernels.ptr(counts), counts.numel(),
+                     int(cap), kernels.ptr(words), words.numel(), call,
                      kernels.ptr(out), kernels.stream(dev))
     kernels.launches["compact"] += 1
     return out
@@ -122,11 +184,11 @@ def row_grid(state: torch.Tensor, seed_ok: torch.Tensor, lane: torch.Tensor,
     sel = torch.empty(cap, dtype=I32, device=dev)
     walk = torch.empty((5, cap), dtype=I32, device=dev)
     wl = torch.empty((4, cap), dtype=I32, device=dev)
-    counts = torch.empty(-(-S * R // SCAN_BLOCK), dtype=I32, device=dev)
     with torch.cuda.device(dev):
+        words, call = scan_scratch(dev).take(S * R)
         kernels.call("row_grid", kernels.ptr(state), kernels.ptr(seed_ok),
                      kernels.ptr(lane), kernels.ptr(s_idx), S, int(R),
-                     int(cap), kernels.ptr(counts), counts.numel(),
+                     int(cap), kernels.ptr(words), words.numel(), call,
                      kernels.ptr(sel), kernels.ptr(walk), kernels.ptr(wl),
                      kernels.stream(dev))
     kernels.launches["row_grid"] += 1

@@ -7,9 +7,12 @@ concatenated unitig string, then a right-side searchsorted into the
 unitig starts, then up to P reference occurrences of the unitig.
 
 `locate` (resolve_rows then expand_refpos, as stage 3 calls them) has a
-hand-written CUDA kernel (csrc/locate.cu) and a plain torch version,
+hand-written CUDA kernel (csrc/locate.cu, which verifies the unitig the
+SA sample names before it searches) and a plain torch version,
 `locate_plain`. The wrapper runs the plain version for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel or raises. Both take
+uni_start non-decreasing, as searchsorted does; LocArrays builds it as a
+cumulative sum.
 """
 from __future__ import annotations
 

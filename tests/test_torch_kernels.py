@@ -1499,33 +1499,42 @@ def test_stage2_wrappers_reject_bad_inputs(cuda, tables):
 @pytest.mark.cuda
 def test_compact_entry_points_refuse_short_scratch(cuda):
     """compact.cu's entry points refuse a scan scratch shorter than one
-    int32 for each of their blocks of 1,024 entries, and with one that
-    long equal the plain versions (2,049 lanes and 1,025 x 2 grid entries
-    need three)."""
+    uint64 word for the ticket and one for each of their blocks of 4,096
+    entries, and a call number of 0 or of 2^30 and past; with one that
+    long they equal the plain versions (8,193 lanes and 4,097 x 2 grid
+    entries need three blocks, four words)."""
     from desamba_tpu_torch.constants import ROWS_PER_SEARCH as R
-    from desamba_tpu_torch.ops.compact import compact_plain, row_grid_plain
+    from desamba_tpu_torch.ops.compact import (CALL_LIMIT, compact_plain,
+                                               row_grid_plain)
 
     assert R == 2
-    n, S, cap, P = 2049, 1025, 64, kernels.ptr
+    n, S, cap, P = 8193, 4097, 64, kernels.ptr
     done = torch.from_numpy(
         (np.random.default_rng(5).random(n) < 0.5).astype(np.int32))
     grid = row_grid_inputs(S, 2)
     dc, gc = done.to(cuda), [t.to(cuda) for t in grid]
     before = dict(kernels.launches)
-    for k in (2, 3):
-        counts = torch.empty(k, dtype=torch.int32, device=cuda)
+    for k in (3, 4):
+        words = torch.zeros(k, dtype=torch.int64, device=cuda)
         out = torch.empty(cap, dtype=torch.int32, device=cuda)
         sel = torch.empty(cap, dtype=torch.int32, device=cuda)
         walk = torch.empty((5, cap), dtype=torch.int32, device=cuda)
         wl = torch.empty((4, cap), dtype=torch.int32, device=cuda)
-        calls = [
-            lambda: kernels.call("compact", P(dc), n, P(None), n, cap,
-                                 P(counts), k, P(out), kernels.stream(cuda)),
-            lambda: kernels.call("row_grid", *map(P, gc), S, R, cap,
-                                 P(counts), k, P(sel), P(walk), P(wl),
-                                 kernels.stream(cuda))]
-        for f in calls:
-            if k == 2:
+
+        def calls(call):
+            return [
+                lambda: kernels.call("compact", P(dc), n, P(None), n, cap,
+                                     P(words), k, call, P(out),
+                                     kernels.stream(cuda)),
+                lambda: kernels.call("row_grid", *map(P, gc), S, R, cap,
+                                     P(words), k, call + 1, P(sel), P(walk),
+                                     P(wl), kernels.stream(cuda))]
+        for f in calls(0)[:1] + calls(CALL_LIMIT - 1)[1:] + calls(
+                CALL_LIMIT)[:1]:
+            with pytest.raises(RuntimeError, match="cudaError"):
+                f()
+        for f in calls(1):
+            if k == 3:
                 with pytest.raises(RuntimeError, match="cudaError"):
                     f()
             else:

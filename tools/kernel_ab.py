@@ -1,30 +1,42 @@
-"""Time the stage-1 kernel (K4 + K5) and the row walks (K2) against an
-earlier commit's, in turns, on the chunks of chip_smoke.py, on one GPU.
+"""Time the stage-1 kernel (K4 + K5), the row walks (K2), locate (K6)
+and the compaction scan (K3: compact, row_grid) against an earlier
+commit's, in turns, on the chunks of chip_smoke.py, on one GPU.
 
     mkdir -p build/parent
-    for f in stage1.cu row_walks.cu bloom.cuh; do
+    for f in stage1.cu row_walks.cu bloom.cuh locate.cu compact.cu \
+        wrap.cuh; do
       git show <commit>:desamba_tpu_torch/csrc/$f > build/parent/$f; done
     python3 tools/kernel_ab.py build/parent
 
-Builds the parent's stage1.cu and row_walks.cu with kernels.NVCC_FLAGS
-into that directory and puts their C entry points, loaded with the
-argtypes of kernels.KERNELS, under the port's own wrappers
-(parent_kernels): the C interfaces are the same. The parent's resume
+Builds the parent's sources of NAMES with kernels.NVCC_FLAGS into that
+directory and puts their C entry points under the port's own wrappers
+(parent_kernels). stage1, row_walks and locate have the same C
+interfaces as the current kernels and load with the argtypes of
+kernels.KERNELS. A parent whose compact and row_grid are the earlier
+two-launch scan takes an int32 scratch of one count a block in place of
+the scan's words and call number: PARENT_ARGTYPES loads them, and an
+adapter hands them one such scratch that it keeps (the parent's wrapper
+made one a call with torch.empty, which launches nothing). The parent's resume
 wrote into a copy of the carry that its wrapper made; parent_kernels
 hands the wrapper that copy (copy=True). Makes the smoke's bench data
 (chip_smoke.make_data, cached under build/bench_cache) and captures the
 kernels' calls on the first chunk of each width bucket
-(chip_smoke.kernel_inputs: stage 1's call and K2's burst, mid and tail
-resume). Both kernels' outputs must equal the plain versions', or the run
-fails. Then, with L2 evicted before each call (chip_smoke.cuda_ms, median
-of 20): each call parent, current, current, parent (the resumes' parent
-also without its copy, parent_kernel_ms), and the host's time a call
-(host_us: the wrapper's enqueue, median of 200, in the same turns); the
-parent's K2 sweep over chip_smoke.WALK_SWEEP_CAPS beside the bare pointer
-chase (chip_smoke.walk_sweep) on the first chunk's burst carry; and
+(chip_smoke.kernel_inputs: stage 1's call, K2's burst, mid and tail
+resume, locate's call, compact's first call and first through a source
+list, row_grid's call). Both sides' outputs must equal the plain
+versions', or the run fails. Then, with L2 evicted before each call
+(chip_smoke.cuda_ms, median of 20): each call parent, current, current,
+parent (the resumes' parent also without its copy, parent_kernel_ms),
+and the host's time a call (host_us: the wrapper's enqueue, median of
+200, in the same turns); the parent's K2 sweep over
+chip_smoke.WALK_SWEEP_CAPS beside the bare pointer chase
+(chip_smoke.walk_sweep) on the first chunk's burst carry; and
 pure-device classify_batch reads/s of all reads in N_PAIRS pairs, the
 parent first in every other pair, three calls a side, whose results must
-be equal. Prints the card line and one JSON line, `kernel_ab {...}`.
+be equal, then the same pairs with the parent against itself, the
+current against itself, and the current kernels under parent_kernels
+against the current as they stand (controls: they read the pairing's
+and parent_kernels' own bias). Prints the card line and one JSON line, `kernel_ab {...}`.
 """
 from __future__ import annotations
 
@@ -41,8 +53,18 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("stage1", "row_walks")
+NAMES = ("stage1", "row_walks", "locate", "compact", "row_grid")
+# the calls of each chunk timed in turns (chip_smoke.kernel_inputs' keys)
+KEYS = ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2",
+        "locate", "compact", "compact[src]", "row_grid")
 N_PAIRS = 10  # pairs of (parent, current) pure-device classify_batch turns
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the two-launch scan's entry points: (..., cap, counts, n_counts, out,
+# stream)
+PARENT_ARGTYPES = {
+    "compact": [_P, _LL, _P, _LL, _I, _P, _LL, _P, _P],
+    "row_grid": [_P, _P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P],
+}
 
 
 def build_parent(pdir: str) -> tuple[dict, dict]:
@@ -52,23 +74,43 @@ def build_parent(pdir: str) -> tuple[dict, dict]:
 
     nvcc = kernels._nvcc()
     procs = {}
-    for name in NAMES:
-        src = kernels.KERNELS[name][0]
-        lib = os.path.join(pdir, f"lib{name}-parent.so")
-        procs[name] = lib, subprocess.Popen(
+    for src in sorted({kernels.KERNELS[name][0] for name in NAMES}):
+        lib = os.path.join(pdir, f"lib{os.path.splitext(src)[0]}-parent.so")
+        procs[src] = lib, subprocess.Popen(
             [nvcc, *kernels.NVCC_FLAGS, "-o", lib, os.path.join(pdir, src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns, logs = {}, {}
-    for name, (lib, p) in procs.items():
+    libs = {}
+    for src, (lib, p) in procs.items():
         log = p.communicate()[0]
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc {name}:\n{log}")
-        logs[name] = dict(log=log)
-        _, entry, argtypes = kernels.KERNELS[name]
-        fn = getattr(ctypes.CDLL(lib), entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
+            raise RuntimeError(f"nvcc {src}:\n{log}")
+        libs[src] = lib, log
+    fns, logs = {}, {}
+    for name in NAMES:
+        src, entry, argtypes = kernels.KERNELS[name]
+        logs[name] = dict(log=libs[src][1])
+        fn = getattr(ctypes.CDLL(libs[src][0]), entry)
+        fn.argtypes = PARENT_ARGTYPES.get(name, argtypes)
+        fn.restype = ctypes.c_int
+        fns[name] = scan_adapter(fn) if name in PARENT_ARGTYPES else fn
     return fns, cs.ptxas_report(logs)
+
+
+def scan_adapter(fn):
+    """The parent's two-launch compact or row_grid entry point fn under
+    the current C interface: the scan's words, their length and the call
+    number become one int32 scratch of a count a block (16,384 blocks of
+    1,024 entries), which the adapter keeps."""
+    import torch
+
+    counts = torch.empty(1 << 14, dtype=torch.int32, device="cuda")
+
+    def call(*a):
+        # (..., cap, words, n_words, call, outputs..., stream)
+        i = 5 if len(a) == 10 else 7
+        return fn(*a[:i], ctypes.c_void_p(counts.data_ptr()), counts.numel(),
+                  *a[i + 3:])
+    return call
 
 
 @contextlib.contextmanager
@@ -121,7 +163,7 @@ def main() -> int:
     reads = [(r.name, r.seq, r.qual) for r in read_fastx(fq)]
     chunks = cs.first_chunks(cl, reads)
     res = dict(card=card, ptxas={k: ptxas[k] for k in NAMES},
-               parent_ptxas=parent_ptxas, stage1={}, row_walks={})
+               parent_ptxas=parent_ptxas, **{k: {} for k in NAMES})
 
     def host_us(fn) -> float:
         """Median host time (µs) of fn over 200 calls, each timed alone;
@@ -147,8 +189,7 @@ def main() -> int:
 
     for W in sorted(chunks):
         cap = cs.kernel_inputs(cl, *chunks[W][:2])
-        for key in ("stage1", "row_walks", "row_walks[sel]",
-                    "row_walks[sel]#2"):
+        for key in KEYS:
             args, kw = cap[key]
             name = key.split("[")[0]
             # looked up at each call, so that parent_kernels' copy applies
@@ -168,17 +209,16 @@ def main() -> int:
                                          f"kernel differs (max abs err "
                                          f"{err})")
             r = turns(fn, prep)
+            r["shape"] = cs.SHAPES[name](args) + "".join(
+                f" {k}={v.numel()}" for k, v in kw.items())
+            r["bound_ms"], r["bound_by"] = cs.bound(name, args, ref, **kw)
             if name == "stage1":
-                r["bound_ms"], r["bound_by"] = cs.bound("stage1", args, ref)
                 r["bound_old_ms"] = cs.stage1_old_bound(args, ref)
-                res["stage1"][f"W={W}"] = r
-            else:
-                r["shape"] = f"n={args[4].shape[1]} cap={args[5]}"
-                if kw:
-                    with parent_kernels(fns, copy=False):
-                        r["parent_kernel_ms"] = cs.cuda_ms(fn, 20, cold=True,
-                                                           prep=prep)
-                res["row_walks"][f"{key} W={W}"] = r
+            if name == "row_walks" and kw:
+                with parent_kernels(fns, copy=False):
+                    r["parent_kernel_ms"] = cs.cuda_ms(fn, 20, cold=True,
+                                                       prep=prep)
+            res[name][f"{key} W={W}"] = r
             cs.log(f"kernel_ab: {key} W={W}: {r}")
         if W == min(chunks):
             with parent_kernels(fns):
@@ -186,26 +226,43 @@ def main() -> int:
                     info["measure.cu"]["path"], cap["row_walks"][0])
         del cap
 
-    # pure-device reads/s of every read, parent and current in pairs
+    # pure-device reads/s of every read in pairs: parent and current, and
+    # the controls, each side against itself
     cl.exact_fallback = False
     cl.classify_batch(reads, block=cs.BLOCK)
-    rates = dict(parent=[], current=[])
-    first = None
-    for parent in [p for i in range(N_PAIRS)
-                   for p in ((True, False) if i % 2 == 0 else (False, True))]:
-        with parent_kernels(fns) if parent else contextlib.nullcontext():
-            for _ in range(3):
-                t0 = time.time()
-                out = cl.classify_batch(reads, block=cs.BLOCK)
-                torch.cuda.synchronize()
-                rates["parent" if parent else "current"].append(
-                    len(reads) / (time.time() - t0))
-        first = first or cs.tup(out)
-        if cs.tup(out) != first:
-            raise AssertionError("the parent's and the current kernels' "
-                                 "results differ")
-    res["device_reads_per_s"] = rates
-    cs.log(f"kernel_ab: pure-device reads/s {rates}")
+    first = cs.tup(cl.classify_batch(reads, block=cs.BLOCK))
+
+    def pairs(a, b) -> dict:
+        """reads/s of N_PAIRS pairs of three calls a side, side "a" first
+        in every other pair; a side runs under parent_kernels with the
+        entry points it names, or, where None, as it stands. Every
+        call's results must equal the first's."""
+        rates = dict(a=[], b=[])
+        for side in [s for i in range(N_PAIRS)
+                     for s in (("a", "b") if i % 2 == 0 else ("b", "a"))]:
+            ep = dict(a=a, b=b)[side]
+            with (parent_kernels(ep) if ep is not None
+                  else contextlib.nullcontext()):
+                for _ in range(3):
+                    t0 = time.time()
+                    out = cl.classify_batch(reads, block=cs.BLOCK)
+                    torch.cuda.synchronize()
+                    rates[side].append(len(reads) / (time.time() - t0))
+                    if cs.tup(out) != first:
+                        raise AssertionError("the parent's and the current "
+                                             "kernels' results differ")
+        return rates
+
+    ab = pairs(fns, None)
+    res["device_reads_per_s"] = dict(parent=ab["a"], current=ab["b"])
+    # controls: each side against itself, and the current kernels under
+    # parent_kernels (its swap and K2's copy) against the current as is
+    res["device_reads_per_s_aa_parent"] = pairs(fns, fns)
+    res["device_reads_per_s_aa_current"] = pairs(None, None)
+    res["device_reads_per_s_harness"] = pairs(
+        {n: kernels._fn(n) for n in NAMES}, None)
+    cs.log("kernel_ab: pure-device reads/s " + json.dumps(
+        {k: v for k, v in res.items() if k.startswith("device_reads")}))
     print("kernel_ab " + json.dumps(res), flush=True)
     return 0
 
