@@ -20,13 +20,14 @@ Phases (any failure raises, and the script exits nonzero):
      builds the kernels and csrc/measure.cu's floors (timed, in
      parallel); stage 1's and K2's registers, spills and stack from
      -Xptxas -v (the `ptxas` line)
-  2. the bench data (child process), the port's index loader and
-     FastClassifier on "cuda"; the stages run once on the first full
+  2. the bench data and its genome shards (child processes, the two
+     builds at once), the port's index loader and FastClassifier on
+     "cuda"; the stages run once on the first full
      chunk of the narrowest width bucket, recording each kernel's inputs
-     there (its first call, and its first call through an index list:
-     K1's and K2's resumes (K2's mid and tail, each from a copy of the
-     carry, which the resume updates in place), compact's second cut),
-     and each kernel is held
+     there (its first call, and its calls through an index list: K1's
+     and K2's mid and tail resumes, each from a copy of the carry, which
+     the resume updates in place; compact's second cut), and each kernel
+     is held
      against its plain version on them: equal exactly, both timed with
      CUDA events (median of 20, L2 flushed before each call, as the path
      finds the tables cold), beside the least time the card could take
@@ -36,16 +37,21 @@ Phases (any failure raises, and the script exits nonzero):
      csrc/measure.cu); K2 on the burst carry at each cap of
      WALK_SWEEP_CAPS, cold and warm, beside a bare pointer chase over
      the lfc table with the same gathers a lane (walk_sweep, the other
-     floor of csrc/measure.cu); stage 1 on
+     floor of csrc/measure.cu); K1's three calls (the burst, the mid and
+     the tail resume) each run in place through its C entry point beside
+     dsb_occ_chase, the same lanes' occ32 gathers for the same steps and
+     nothing else (k1_floor), on the first chunk of each width bucket
+     (the `k1_floor` line); stage 1 on
      tests/test_torch_stage1.stage1_cases (every width bucket, lek 13-31,
-     three bitmaps, every case reached); stage 1, K2's three calls,
-     compact's first call and first through a source list, row_grid and
-     locate held and timed likewise on the first chunk of each other
-     width bucket and on the W = 4096 and 8192 encodings below
-     (check_chunk_calls; stage 1 and K2 in the `stage1_row_walks` line);
-     compact's and row_grid's calls of every chunk launched back to back
-     on one stream, each equal to its plain version
-     (check_scan_back_to_back); locate on the first chunk of each width
+     three bitmaps, every case reached); stage 1, K1's and K2's three
+     calls each, compact's first call and first through a source list,
+     row_grid, locate and the vote held and timed likewise on the first
+     chunk of each other width bucket and on the W = 4096 and 8192
+     encodings below (check_chunk_calls; stage 1 and K2 in the
+     `stage1_row_walks` line); compact's, row_grid's, K1's and the vote's
+     calls of every chunk launched back to back on one stream (their
+     scratch, K1's carries in place), each equal to its plain version
+     (check_back_to_back); locate on the first chunk of each width
      bucket split into its parts, each alone (the walk, the search and
      expansion from a verified guess as the kernel runs them; floors of
      csrc/measure.cu),
@@ -103,9 +109,12 @@ Phases (any failure raises, and the script exits nonzero):
      evicted, beside its bound
   7. the genome-sharded classifier (engine/sharded_fast): the community
      split into N_SHARDS genome shards by a child process (the JAX
-     package's build_sharded_index, timed), loaded on the card; the merge
+     package's build_sharded_index, timed; it runs in phase 2 beside the
+     index build, before any measurement), loaded on the card; the merge
      kernel (K11) against its plain version on each chunk's stacked shard
-     results, timed on the first with L2 evicted beside its bound; launch
+     results, timed on the first with L2 evicted beside its bound; K1's
+     three calls and the vote on each shard's first chunk held to their
+     plain versions and timed (check_chunk_calls); launch
      counts set to 0 just before a pure-device classify_batch and read
      just after (each stage kernel N_SHARDS times a chunk, the merge
      once); pure-device and exact-replay reads/s (median of N_RATE_CALLS
@@ -167,8 +176,8 @@ INT32_OPS_PER_S = 67e12 / 4
 SECTOR = 32           # bytes a random device-memory read moves at least
 L2_FLUSH_BYTES = 256 << 20  # > the 50 MB L2: written to evict it
 HIDE_HOST_CYCLES = 400_000  # ~0.2 ms of spin before a cold call's events
-STAGE2_MAX_LAUNCHES = 60  # kernels a chunk of stage 2 on the kernel path
-STAGE3_MAX_LAUNCHES = 6   # and of stage 3 (locate, then the vote)
+STAGE2_MAX_LAUNCHES = 46  # kernels a chunk of stage 2 on the kernel path
+STAGE3_MAX_LAUNCHES = 3   # and of stage 3 (locate, then the vote's two)
 N_SHARDS = 2          # phase 7's genome shards (SHARDED_r05.json's count)
 N_RATE_CALLS = 3      # calls each of phase 7's rates is the median of
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -190,7 +199,7 @@ GLOBAL = {
     "row_grid": ("row_grid_kernel",),
     "row_walks": ("row_walks_kernel",),
     "locate": ("locate_kernel",),
-    "vote": ("vote_kernel", "vote_fill_kernel", "vote_scatter_kernel"),
+    "vote": ("vote_kernel", "vote_map_kernel"),
     "band_windows": ("band_windows_kernel",),
     "band_score_packed": ("band_score_kernel",),
     "combine": ("combine_kernel",),
@@ -200,17 +209,21 @@ FAST_KERNELS = tuple(GLOBAL)
 HAND_FUNCS = {**GLOBAL, "shard_merge": ("shard_merge_kernel",)}
 # the calls through an index list that stage 2 makes, each held against
 # its plain version besides its kernel's first call
-INDEX_LIST_CALLS = ("interval_search[sel]", "row_walks[sel]",
-                    "row_walks[sel]#2", "compact[src]")
-# kernels whose every call a chunk is captured and checked (K2: the burst,
-# then the mid and the tail resume); "name[sel]#2" is the second call
-# through an index list
-EVERY_CALL = ("row_walks",)
+INDEX_LIST_CALLS = ("interval_search[sel]", "interval_search[sel]#2",
+                    "row_walks[sel]", "row_walks[sel]#2", "compact[src]")
+# kernels whose every call a chunk is captured and checked (K1 and K2:
+# the burst, then the mid and the tail resume); "name[sel]#2" is the
+# second call through an index list
+EVERY_CALL = ("interval_search", "row_walks")
+# K1's calls of a chunk: the burst over all S lanes, then the mid and the
+# tail resume through their index lists
+K1_CALLS = ("interval_search", "interval_search[sel]",
+            "interval_search[sel]#2")
 # the caps of the K2 sweep on the burst carry (0 and 2 fix the intercept,
 # 12 and 32 the slope), and the argument of a resume that it updates in
-# place (K2's carry, args[4])
+# place (K1's carry, args[6]; K2's, args[4])
 WALK_SWEEP_CAPS = (0, 2, 12, 32)
-IN_PLACE = {"row_walks": 4}
+IN_PLACE = {"interval_search": 6, "row_walks": 4}
 REPLACES = {
     "unpack": "desamba_tpu/engine/fast_engine.py:141",
     "stage1": "desamba_tpu/engine/fast_engine.py:203",
@@ -442,15 +455,15 @@ def kernel_inputs(cl, packed, lens) -> dict:
     return cap
 
 
-def recording(cap: dict, name: str, fn):
+def recording(cap: dict, name: str, fn, every=EVERY_CALL):
     """fn, recording (args, keyword args) of its first call into cap, under
     name, or "name[kw,...]" for a call with keyword arguments; of a kernel
-    in EVERY_CALL every call, the second of a key as "key#2". A resume
+    in `every` every call, the second of a key as "key#2". A resume
     that updates its carry in place (IN_PLACE) is recorded with a copy of
     the carry as the call found it."""
     def call(*args, **kw):
         key = f"{name}[{','.join(kw)}]" if kw else name
-        if name in EVERY_CALL and key in cap:
+        if name in every and key in cap:
             key += f"#{sum(k.split('#')[0] == key for k in cap) + 1}"
         if key not in cap:
             saved = list(args)
@@ -505,11 +518,13 @@ def work(name: str, args, out, sel=None, src=None) -> tuple[int, int]:
     if name == "interval_search":
         fm, codes, lanes, max_rst, l_min, l_max, state, _ = args
         steps = int((state[5] - out[5]).sum(dtype=torch.int64))
-        # two occ words (one sector each) and a read code a step; through
-        # an index list, the listed lanes' parameters (each distinct
-        # sector once) and the carry copied in and out
-        return (per_lane_bytes(sel, lanes, max_rst, l_min, l_max)
-                + nbytes(state, out) + steps * (2 * SECTOR + 4), steps * 40)
+        # two occ words (one sector each) and a read code a step; the
+        # carry in and out; through an index list (a resume in place), the
+        # listed lanes' parameters and carry, each distinct sector once
+        carry = ((state, out) if sel is None
+                 else (*state.unbind(0), *out.unbind(0)))
+        return (per_lane_bytes(sel, lanes, max_rst, l_min, l_max, *carry)
+                + steps * (2 * SECTOR + 4), steps * 40)
     if name == "row_walks":
         fm, codes, lanes, max_lens, state, _ = args
         reads = int((out[2] - state[2]).sum(dtype=torch.int64)
@@ -1023,6 +1038,13 @@ def bound_of(b: int, ops: int) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def bound_terms(b: int, ops: int) -> dict:
+    """Both terms of bound_of: ms for b bytes and for ops operations."""
+    return dict(bytes_ms=b / HBM_BYTES_PER_S * 1e3,
+                operations_ms=ops / INT32_OPS_PER_S * 1e3, bytes=b,
+                operations=ops)
+
+
 def bound(name: str, args, out, **kw) -> tuple[float, str]:
     """bound_of the kernel's work on these inputs."""
     return bound_of(*work(name, args, out, **kw))
@@ -1090,6 +1112,9 @@ def check_kernels(cap: dict) -> dict:
                         library_ms=library_ms, shape=shape)
         if name == "stage1":
             out[key]["bound_old_ms"] = stage1_old_bound(args, ref)
+        if name == "vote":
+            out[key]["bound_terms"] = bound_terms(*vote_work(*args))
+            log(f"smoke: vote bound terms {out[key]['bound_terms']}")
         log(f"smoke: {key} [{shape}] equal; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             + (f", torch.nonzero {library_ms:.4f} ms"
@@ -1106,14 +1131,19 @@ def stage1_old_bound(args, out) -> float:
 
 
 # another chunk's calls that check_chunk_calls holds and times: stage 1,
-# K2's three, the compactions' first and first through a source list,
-# the row grid and locate
-CHUNK_CALLS = ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2",
-               "compact", "compact[src]", "row_grid", "locate")
+# K1's three and K2's three, the compactions' first and first through a
+# source list, the row grid, locate and the vote
+CHUNK_CALLS = ("stage1", *K1_CALLS, "row_walks", "row_walks[sel]",
+               "row_walks[sel]#2", "compact", "compact[src]", "row_grid",
+               "locate", "vote")
 
 
-def check_chunk_calls(cap: dict, label: str) -> dict:
-    """CHUNK_CALLS on another chunk's captured calls (kernel_inputs), each
+# the calls that phase 7 holds and times on each shard's first chunk
+SHARD_CALLS = (*K1_CALLS, "vote")
+
+
+def check_chunk_calls(cap: dict, label: str, keys=CHUNK_CALLS) -> dict:
+    """keys on another chunk's captured calls (kernel_inputs), each
     held to its plain version (equal exactly, one launch a call, or the
     run fails) and timed with L2 evicted beside its bound; stage 1 also
     beside the full-build bound."""
@@ -1123,7 +1153,7 @@ def check_chunk_calls(cap: dict, label: str) -> dict:
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
     out = {}
-    for key in CHUNK_CALLS:
+    for key in keys:
         args, kw = cap[key]
         name = key.split("[")[0]
         fn, prep = in_place_call(name, KERNEL_OPS[name], args, kw)
@@ -1153,37 +1183,52 @@ def check_chunk_calls(cap: dict, label: str) -> dict:
     return out
 
 
-def check_scan_back_to_back(caps: list) -> dict:
-    """compact's and row_grid's captured calls of every chunk (caps: the
+# the kernels whose calls check_back_to_back launches back to back: the
+# scan's (their flags in one scratch a stream), K1's (its resumes update
+# the carry in place) and the vote's (its slot map, one a stream)
+BACK_TO_BACK = ("compact", "row_grid", "interval_search", "vote")
+
+
+def check_back_to_back(caps: list) -> dict:
+    """The BACK_TO_BACK kernels' captured calls of every chunk (caps: the
     kernel_inputs of each) launched back to back on one stream, with no
-    synchronize between them, so that each call's scan meets the flags
-    the calls before it left in the shared scratch: each must equal its
-    plain version, one launch a call, or the run fails."""
+    synchronize between them, so that each call meets what the calls
+    before it left in the scratch they share (the scan's flags, the
+    vote's map words); a resume runs on its own copy of the carry, made
+    before the first launch. Each must equal its plain version, one
+    launch a call, or the run fails."""
     import torch
 
     from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, PLAIN_OPS
 
     calls = [(key, *c[key]) for c in caps for key in c
-             if key.split("[")[0] in ("compact", "row_grid")]
+             if key.split("[")[0] in BACK_TO_BACK]
+    runs = []
+    for key, args, kw in calls:
+        name = key.split("[")[0]
+        if kw and name in IN_PLACE:
+            i = IN_PLACE[name]
+            args = (*args[:i], args[i].clone(), *args[i + 1:])
+        runs.append((name, args, kw))
     before = dict(kernels.launches)
-    got = [KERNEL_OPS[key.split("[")[0]](*args, **kw)
-           for key, args, kw in calls]
+    got = [KERNEL_OPS[name](*args, **kw) for name, args, kw in runs]
     torch.cuda.synchronize()
     sizes = []
     for (key, args, kw), g in zip(calls, got):
-        err = max_abs_err(g, PLAIN_OPS[key.split("[")[0]](*args, **kw))
+        name = key.split("[")[0]
+        err = max_abs_err(g, PLAIN_OPS[name](*args, **kw))
         if err:
             raise AssertionError(f"{key} back to back: kernel differs from "
                                  f"its plain version (max abs err {err})")
-        sizes.append(SHAPES[key.split("[")[0]](args))
-    for name in ("compact", "row_grid"):
+        sizes.append(f"{key}: {SHAPES[name](args)}")
+    for name in BACK_TO_BACK:
         if kernels.launches[name] - before[name] != sum(
                 k.split("[")[0] == name for k, _, _ in calls):
             raise AssertionError(f"{name} back to back: launched other "
                                  f"than once a call")
-    log(f"smoke: compact and row_grid, {len(calls)} calls back to back on "
-        f"one stream, each equal to its plain version")
+    log(f"smoke: {', '.join(BACK_TO_BACK)}: {len(calls)} calls back to "
+        f"back on one stream, each equal to its plain version")
     return dict(calls=len(calls), shapes=sizes)
 
 
@@ -1329,6 +1374,76 @@ def walk_sweep(lib: str, args, kern=None) -> dict:
     return out
 
 
+def k1_floor(lib: str, args, kw, fn=None) -> dict:
+    """K1 on one captured call (args, kw: the burst, or a resume through
+    sel) beside its chain alone, each cold (L2 evicted, median of 20):
+    the C entry point fn (default the port's; an earlier commit's from
+    tools/kernel_ab.py) run on a work copy of the carry in place, with no
+    copy of the carry inside the events (the burst writes a new carry),
+    and dsb_occ_chase (csrc/measure.cu, library lib) on the same lanes
+    for the steps each took in that call (ptr's fall, the stopping step
+    included), the same dependent occ32 gathers and nothing else. The
+    in-place call must equal the plain version, or the run fails."""
+    import ctypes
+
+    import torch
+
+    from desamba_tpu_torch import kernels
+    from desamba_tpu_torch.engine.fast_engine import PLAIN_OPS
+
+    fm, codes, lanes, max_rst, l_min, l_max, state, max_steps = args
+    sel = kw.get("sel")
+    n = state.shape[1]
+    dev = state.device
+    ref = PLAIN_OPS["interval_search"](*args, **kw)
+    took = state[5] - ref[5]
+    if sel is None:
+        m, steps = n, took.to(torch.int32).contiguous()
+    else:
+        ok = (sel >= 0) & (sel < n)
+        m = sel.numel()
+        steps = torch.where(ok, took[sel.clamp(0, n - 1).long()], 0).to(
+            torch.int32).contiguous()
+    fn = fn or kernels._fn("interval_search")
+    work = state.clone()
+    out = work if sel is not None else torch.empty_like(state)
+    p = kernels.ptr
+
+    def direct():
+        _rc("dsb_interval_search", fn(
+            p(fm.occ32), fm.occ32.shape[0], p(fm.rank), p(codes),
+            codes.shape[1], p(lanes), p(max_rst), p(l_min), p(l_max),
+            p(work), p(out), n, p(sel), m, int(max_steps),
+            kernels.stream(dev)))
+
+    chase = ctypes.CDLL(lib).dsb_occ_chase
+    Pt, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    chase.argtypes = [Pt, LL, Pt, Pt, I, Pt, Pt, LL, Pt, LL, Pt, Pt, Pt]
+    chase.restype = ctypes.c_int
+    sink = torch.empty(max(m, 1), dtype=torch.int32, device=dev)
+
+    def chased():
+        _rc("dsb_occ_chase", chase(
+            p(fm.occ32), fm.occ32.shape[0], p(fm.rank), p(codes),
+            codes.shape[1], p(lanes), p(state), n, p(sel), m, p(steps),
+            p(sink), kernels.stream(dev)))
+
+    prep = lambda: work.copy_(state)  # noqa: E731
+    prep()
+    direct()
+    torch.cuda.synchronize()
+    err = max_abs_err(out, ref)
+    if err:
+        raise AssertionError(f"interval_search in place "
+                             f"({SHAPES['interval_search'](args)}): "
+                             f"differs from its plain version (max abs "
+                             f"err {err})")
+    return dict(kernel_ms=cuda_ms(direct, 20, cold=True, prep=prep),
+                chase_ms=cuda_ms(chased, 20, cold=True), lanes=m,
+                steps=int(steps.sum(dtype=torch.int64)),
+                max_steps=int(steps.max()) if m else 0)
+
+
 def ptxas_report(info: dict) -> dict:
     """{kernel: [{function, registers, spill_stores, spill_loads,
     stack}]} from each library's nvcc -Xptxas -v output."""
@@ -1425,7 +1540,8 @@ def check_vote(cl, reads, gtabs) -> tuple[dict, dict, dict]:
             out[key].update(
                 ms=cuda_ms(lambda: kern(*args), 20, cold=True),
                 plain_ms=cuda_ms(lambda: plain(*args), 5, cold=True),
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_terms=bound_terms(*vote_work(*args)))
         log(f"smoke: vote ({key}) [{shape}] equal" + (
             f"; kernel {out[key]['ms']:.4f} ms, plain "
             f"{out[key]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
@@ -1531,7 +1647,10 @@ def where_time_goes(cl, chunks: dict, reads, card: str,
             vote_ms = cuda_ms(lambda: KERNEL_OPS["vote"](*vargs), 20,
                               cold=True)
             vote_bound = bound_of(*vote_work(*vargs))
-        row["3 locate+vote"].update(vote_ms=vote_ms, vote_bound=vote_bound)
+        row["3 locate+vote"].update(
+            vote_ms=vote_ms, vote_bound=vote_bound,
+            vote_bound_terms=vote_first["bound_terms"] if W == min(chunks)
+            else bound_terms(*vote_work(*vargs)))
         stages[f"W={W} ({n_chunk} reads)"] = row
     cl.exact_fallback = False
     torch.cuda.synchronize()
@@ -1662,7 +1781,7 @@ def validation_phase(cl, reads, card: str, gidx, build_s: float) -> dict:
                                       "walk_fallback", "cand_fallback")}
     tp = TpuClassifier(cl.idx, device="cuda", plain=True, fm=cl.fm)
     cap: dict = {}
-    tp.ops = {k: recording(cap, k, f) for k, f in tp.ops.items()}
+    tp.ops = {k: recording(cap, k, f, every=()) for k, f in tp.ops.items()}
     t0 = time.time()
     sam_plain = tp.classify_to_sam(sub)
     torch.cuda.synchronize()
@@ -1732,26 +1851,35 @@ def validation_phase(cl, reads, card: str, gidx, build_s: float) -> dict:
                 n_native_differ=len(differ), checks=checks)
 
 
-def make_sharded_index(fa: str) -> tuple[str, float]:
-    """(shard root, seconds): the community FASTA split into N_SHARDS
-    genome shards under CACHE, once, by the JAX package's
-    build_sharded_index (its size-balanced partition, one process a
-    shard) in a child process, as make_data builds the monolithic index
-    (the port has no index builder yet)."""
+def start_sharded_index(fa: str):
+    """(shard root, child process or None, start time): the community
+    FASTA split into N_SHARDS genome shards under CACHE, once, by the JAX
+    package's build_sharded_index (its size-balanced partition, one
+    process a shard) in a child process, as make_data builds the
+    monolithic index (the port has no index builder yet); None where the
+    shards are there already. finish_sharded_index waits for it."""
     root = os.path.join(CACHE, f"shards{N_SHARDS}_"
                         f"{os.path.splitext(os.path.basename(fa))[0]}")
     if os.path.exists(os.path.join(root, "shards.json")):  # written last
-        return root, 0.0
+        return root, None, time.time()
     code = ("import sys\n"
             "from desamba_tpu.parallel.shard_index import "
             "build_sharded_index\n"
             "build_sharded_index(sys.argv[1], sys.argv[2], int(sys.argv[3]))"
             "\n")
-    t0 = time.time()
-    p = subprocess.run([sys.executable, "-c", code, fa, root, str(N_SHARDS)],
-                       cwd=ROOT, capture_output=True, text=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"build_sharded_index failed:\n{p.stderr[-4000:]}")
+    return root, subprocess.Popen(
+        [sys.executable, "-c", code, fa, root, str(N_SHARDS)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.time()
+
+
+def finish_sharded_index(root: str, proc, t0: float) -> tuple[str, float]:
+    """(shard root, seconds of the build; 0.0 where none ran)."""
+    if proc is None:
+        return root, 0.0
+    err = proc.communicate()[1]
+    if proc.returncode != 0:
+        raise RuntimeError(f"build_sharded_index failed:\n{err[-4000:]}")
     return root, time.time() - t0
 
 
@@ -1763,7 +1891,7 @@ def spread(xs) -> dict:
                 runs=list(xs))
 
 
-def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
+def sharded_phase(cl, reads, shard_index, card, res, res_dev, native_tids,
                   measure: str) -> dict:
     """Phase 7: the genome-sharded classifier (load_sharded_fast) on the
     card, the bench community in N_SHARDS genome shards. The merge (K11)
@@ -1787,8 +1915,9 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
                                                        load_sharded_fast)
     from desamba_tpu_torch.ops.merge import shard_merge, shard_merge_plain
 
-    root, build_s = make_sharded_index(fa)
-    log(f"smoke: {N_SHARDS} genome shards built in {build_s:.1f} s")
+    root, build_s = shard_index
+    log(f"smoke: {N_SHARDS} genome shards built in {build_s:.1f} s (with "
+        f"the index, phase 2)")
     t0 = time.time()
     scl = load_sharded_fast(root, device="cuda", exact_fallback=True)
     torch.cuda.synchronize()
@@ -1911,15 +2040,19 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
     # the sharded chunk whole, and one profiled pure-device batch; locate
     # on each shard split into its parts (locate_split)
     W, (packed, lens, n_chunk) = min(first_chunks(scl, reads).items())
-    stages, splits = {}, {}
+    stages, splits, shard_calls = {}, {}, {}
     for s, (fm, ek_s, loc, ra) in enumerate(scl.shards):
         one = SimpleNamespace(fm=fm, ek=ek_s, loc=loc, ra=ra,
                               device=scl.device, _full=build_full(
                                   ek.lek, ek.single_base_max, ek.mask_bits,
                                   20, ek.n_words0))
+        cap_s = kernel_inputs(one, packed, lens)
         splits[f"shard {s} W={W}"] = locate_split(
-            measure, kernel_inputs(one, packed, lens)["locate"][0],
-            f"shard {s} W={W}")
+            measure, cap_s["locate"][0], f"shard {s} W={W}")
+        # K1's three calls and the vote on the shard's tables
+        shard_calls[f"shard {s} W={W}"] = check_chunk_calls(
+            cap_s, f"shard {s} W={W}", SHARD_CALLS)
+        del cap_s
         fns, _ = stage_calls(one, packed, lens, KERNEL_OPS)
         for st, fn in fns.items():
             if st == "0 unpack" and s > 0:
@@ -1964,7 +2097,7 @@ def sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
         differ_from_monolithic_examples=differ[:10],
         differ_from_monolithic_device_only=differ_dev,
         stages_first_chunk=dict(W=W, reads=n_chunk, stages=stages),
-        locate_split=splits,
+        locate_split=splits, shard_calls=shard_calls,
         batch=dict(batch, device_busy_share=None if busy is None else
                    busy / (1e3 * n / spread(rates_dev)["median"]),
                    wall_ms_two_calls=wall_ms, merge_ms=m_ms,
@@ -2217,21 +2350,51 @@ def data_parallel_phase(cl, idx, reads, chunks: dict, res_dev,
         seconds=secs)
 
 
-def make_data() -> tuple[str, str, str]:
-    """(community FASTA, reads FASTQ, index directory) of the bench data,
-    made once under CACHE by bench.prepare in a child process."""
-    code = ("import json, sys, bench\n"
-            "bench.CACHE, bench.SCALE_BP, bench.N_READS = sys.argv[1], "
-            "int(float(sys.argv[2])), int(sys.argv[3])\n"
-            "print(json.dumps(bench.prepare()))\n")
-    p = subprocess.run([sys.executable, "-c", code, CACHE, str(SCALE_BP),
-                        str(N_READS)], cwd=ROOT, capture_output=True,
-                       text=True)
+# bench.prepare in a child process, with its cache and sizes as arguments;
+# FASTA_ONLY writes only the community FASTA, where bench.prepare writes
+# it and as it does (bench.py:70-78; bench.prepare then finds it), and
+# prints its path
+PREPARE = ("import json, sys, bench\n"
+           "bench.CACHE, bench.SCALE_BP, bench.N_READS = sys.argv[1], "
+           "int(float(sys.argv[2])), int(sys.argv[3])\n")
+FASTA_ONLY = ("import os\n"
+              "from desamba_tpu.io.fastx import write_fasta\n"
+              "from scale_data import make_community\n"
+              "os.makedirs(bench.CACHE, exist_ok=True)\n"
+              "fa = os.path.join(bench.CACHE, "
+              "f'ref_{bench.SCALE_BP // 1_000_000}M.fa')\n"
+              "if not os.path.exists(fa):\n"
+              "    write_fasta(fa, make_community(\n"
+              "        seed=2024, n_genera=64, "
+              "target_total=bench.SCALE_BP)[0])\n"
+              "print(json.dumps(fa))\n")
+
+
+def prepare(code: str) -> str:
+    """The last line that the child running PREPARE + code prints."""
+    p = subprocess.run([sys.executable, "-c", PREPARE + code, CACHE,
+                        str(SCALE_BP), str(N_READS)], cwd=ROOT,
+                       capture_output=True, text=True)
     if p.returncode != 0:
         raise RuntimeError(f"bench.prepare failed:\n{p.stderr[-4000:]}")
-    log(p.stderr.strip())
-    fa, fq, idx_dir = json.loads(p.stdout.strip().splitlines()[-1])
-    return fa, fq, idx_dir
+    if p.stderr.strip():
+        log(p.stderr.strip())
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def make_data(shards: bool = False) -> tuple:
+    """(community FASTA, reads FASTQ, index directory) of the bench data,
+    made once under CACHE by bench.prepare in a child process. With
+    shards, also (shard root, seconds): the community's N_SHARDS genome
+    shards (start_sharded_index), built at the same time as the index,
+    so that the two builds (~350-450 s and ~200-300 s on the card's host)
+    overlap; a first child writes the FASTA, which both read, and the
+    smoke's measurements start only after both."""
+    if not shards:
+        return tuple(prepare("print(json.dumps(bench.prepare()))\n"))
+    build = start_sharded_index(prepare(FASTA_ONLY))
+    fa, fq, idx_dir = prepare("print(json.dumps(bench.prepare()))\n")
+    return (fa, fq, idx_dir, *finish_sharded_index(*build))
 
 
 def truth_tid(name: str) -> int:
@@ -2304,7 +2467,7 @@ def main() -> int:
     from desamba_tpu_torch.io.fastx import read_fastx
 
     t0 = time.time()
-    fa, fq, idx_dir = make_data()
+    _, fq, idx_dir, *shard_index = make_data(shards=True)
     t_data = time.time() - t0
     t0 = time.time()
     idx = load_index(idx_dir)
@@ -2314,7 +2477,8 @@ def main() -> int:
     reads = [(r.name, r.seq, r.qual) for r in read_fastx(fq)]
     n = len(reads)
     print(f"data {SCALE_BP / 1e6:.1f} Mbp, L={idx.L}, "
-          f"{len(idx.ref_names)} genomes, {n} reads: prepare {t_data:.1f} s, "
+          f"{len(idx.ref_names)} genomes, {n} reads: prepare (the index and "
+          f"the shards at once) {t_data:.1f} s, "
           f"index load + tables on device {t_init:.1f} s", flush=True)
 
     chunks = first_chunks(cl, reads)
@@ -2324,6 +2488,8 @@ def main() -> int:
     splits = {f"W={min(chunks)}": locate_split(measure, cap["locate"][0],
                                                f"W={min(chunks)}")}
     sweep = walk_sweep(measure, cap["row_walks"][0])
+    k1_floors = {f"W={min(chunks)}": {key: k1_floor(measure, *cap[key])
+                                      for key in K1_CALLS}}
     s1_args = cap["stage1"][0]
     floors = {f"W={min(chunks)}": stage1_floor(
         measure, s1_args, PLAIN_OPS["stage1"](*s1_args))}
@@ -2336,6 +2502,8 @@ def main() -> int:
                                                 build_tables(gidx, "cpu"))
     for W in sorted(chunks)[1:]:
         caps[W] = kernel_inputs(cl, *chunks[W][:2])
+        k1_floors[f"W={W}"] = {key: k1_floor(measure, *caps[W][key])
+                               for key in K1_CALLS}
         s1_args = caps[W]["stage1"][0]
         floors[f"W={W}"] = stage1_floor(measure, s1_args,
                                         PLAIN_OPS["stage1"](*s1_args))
@@ -2344,8 +2512,10 @@ def main() -> int:
     for W in sorted(chunks)[1:]:
         splits[f"W={W}"] = locate_split(measure, caps[W]["locate"][0],
                                         f"W={W}")
-    back_to_back = check_scan_back_to_back([cap, *caps.values()])
+    back_to_back = check_back_to_back([cap, *caps.values()])
     print("locate_split " + json.dumps(dict(card=card, **splits)),
+          flush=True)
+    print("k1_floor " + json.dumps(dict(card=card, **k1_floors)),
           flush=True)
     print("stage1_row_walks " + json.dumps(dict(
         card=card, first_chunk={k: checks[k] for k in checks
@@ -2518,7 +2688,13 @@ def main() -> int:
     names = [r["name"] for r in rows]
     rows[names.index("interval_search")]["validation_path"] = vc[
         "interval_search"]
-    rows[names.index("vote")]["other_calls"] = vote_checks
+    rows[names.index("interval_search")].update(
+        floor=k1_floors, other_calls={
+            W: {k: v for k, v in c.items() if k.startswith("interval")}
+            for W, c in more.items()})
+    rows[names.index("vote")].update(
+        other_calls=vote_checks,
+        chunk_calls={W: c["vote"] for W, c in more.items()})
     rows[names.index("stage1")].update(
         bound_old_ms=checks["stage1"]["bound_old_ms"], ptxas=ptxas["stage1"],
         other_calls={W: c["stage1"] for W, c in more.items()},
@@ -2532,7 +2708,7 @@ def main() -> int:
         rows[names.index(k)]["other_calls"] = {
             W: {key: v for key, v in c.items() if key.split("[")[0] == k}
             for W, c in more.items()}
-    for k in ("compact", "row_grid"):
+    for k in BACK_TO_BACK:
         rows[names.index(k)]["back_to_back"] = back_to_back
     rows[names.index("locate")]["split"] = splits
     k8 = rows[names.index("band_score_packed")]
@@ -2543,9 +2719,13 @@ def main() -> int:
              for k in ("probe_reads", "row_walks_trace")]
 
     # ---- phase 7: the genome-sharded classifier
-    sh = sharded_phase(cl, reads, fa, card, res, res_dev, native_tids,
-                       measure)
+    sh = sharded_phase(cl, reads, shard_index, card, res, res_dev,
+                       native_tids, measure)
     rows[names.index("locate")]["split"].update(sh["locate_split"])
+    for k in ("interval_search", "vote"):
+        rows[names.index(k)]["shards"] = {
+            label: {key: v for key, v in c.items() if key.startswith(k)}
+            for label, c in sh["shard_calls"].items()}
     print("sharded " + json.dumps(sh), flush=True)
     rows.append(dict(name="shard_merge", route="cuda",
                      source=kernels.source_path("shard_merge"),

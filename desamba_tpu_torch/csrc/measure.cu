@@ -13,6 +13,13 @@
 // loads[i] dependent gathers over lfc from row start[i], as a walk that
 // takes those steps does, with no compare.
 //
+// dsb_occ_chase: K1's chain alone (csrc/fm_search.cu). Lane j runs
+// carry lane sel[j] (or j, with no list) for steps[j] steps of the
+// backward search's two uint2 occ32 gathers, at sp and at ep, each for
+// the read's code at ptr, ptr falling by one a step, with no stop test
+// and nothing else: the gathers a lane of the search makes in those
+// steps (its stopping step included), in the same dependent chain.
+//
 // K6's parts (csrc/locate.cu, device code in locate.cuh), each alone:
 // dsb_locate_walk, the walk on the lanes' own rows (each lane's final row,
 // steps and ok out); and dsb_locate_tail, the search and the expansion
@@ -20,6 +27,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fm_occ.cuh"
 #include "locate.cuh"
 
 namespace {
@@ -57,6 +65,37 @@ __global__ void lf_chase_kernel(const unsigned* __restrict__ lfc,
     sp = static_cast<int>(__ldg(lfc + dsb::jax_index(sp, n_rows)) &
                            dsb::kLfcRowMask);
   out[i] = sp;
+}
+
+__global__ void occ_chase_kernel(const uint2* __restrict__ occ32,
+                                 long long n_blk,
+                                 const int* __restrict__ rank,
+                                 const int* __restrict__ codes, int W,
+                                 const int* __restrict__ lanes,
+                                 const int* __restrict__ st, long long n,
+                                 const int* __restrict__ sel, long long m,
+                                 const int* __restrict__ steps,
+                                 int* __restrict__ out) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (t >= m) return;
+  const long long i = sel == nullptr ? t : sel[t];
+  if (i < 0 || i >= n) return;
+  int sp = st[i], ep = st[n + i], ptr = st[5 * n + i];
+  const int* row = codes + static_cast<long long>(lanes[i]) * W;
+  const int k = steps[t];
+  for (int it = 0; it < k; ++it) {
+    const int ch = dsb::read_code(row, ptr, W);
+    const int c = dsb::occ_column(ch);
+    const uint2 ps = occ32[dsb::occ_block(sp, n_blk) * 5 + c];
+    const uint2 pe = occ32[dsb::occ_block(ep, n_blk) * 5 + c];
+    const bool valid_c = ch <= 5;
+    const int rk = valid_c ? rank[ch < 0 ? 0 : ch] : 0;
+    sp = valid_c ? rk + dsb::occ_count(ps, sp) : 0;
+    ep = valid_c ? rk + dsb::occ_count(pe, ep) : 0;
+    ptr -= 1;
+  }
+  out[t] = sp ^ ep;
 }
 
 __global__ void locate_walk_kernel(dsb::LocTables t,
@@ -177,6 +216,25 @@ extern "C" int dsb_lf_chase(const void* lfc, long long n_rows,
                       static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned*>(lfc), n_rows,
         static_cast<const int*>(start), static_cast<const int*>(loads), n,
+        static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsb_occ_chase(const void* occ32, long long n_blk,
+                             const void* rank, const void* codes, int W,
+                             const void* lanes, const void* st, long long n,
+                             const void* sel, long long m, const void* steps,
+                             void* out, void* stream) {
+  if (m > 0) {
+    const int threads = 256;
+    const long long blocks = (m + threads - 1) / threads;
+    occ_chase_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint2*>(occ32), n_blk,
+        static_cast<const int*>(rank), static_cast<const int*>(codes), W,
+        static_cast<const int*>(lanes), static_cast<const int*>(st), n,
+        static_cast<const int*>(sel), m, static_cast<const int*>(steps),
         static_cast<int*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -56,7 +56,7 @@ KERNELS = {
          _P, _LL, _I, _I, _P, _P, _P, _P]),
     "vote": (
         "vote.cu", "dsb_vote",
-        [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P]),
+        [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _LL, _I, _P, _U, _P, _P]),
     "band_windows": (
         "rescore.cu", "dsb_band_windows",
         [_P, _P, _P, _P, _P, _LL, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P,

@@ -45,7 +45,9 @@ class ScanScratch:
     each call tags its flags with a number no earlier flag carries. When
     the number would reach CALL_LIMIT, take() zeroes the words (one memset
     on the stream, once in 2^30 - 1 calls) and numbering starts again at
-    1, so no flag of an earlier cycle can read as ready."""
+    1, so no flag of an earlier cycle can read as ready. The vote's slot
+    map (ops/vote.py) is another such scratch: its words are tagged
+    (call << 32) | lane, and it takes them with take_words."""
 
     def __init__(self, device, call: int = 0):
         self.words = torch.zeros(2, dtype=torch.int64, device=device)
@@ -55,7 +57,11 @@ class ScanScratch:
                                                             int]:
         """(words, call number) for a call over m entries in blocks of
         `block`; the words grow (zeroed) to hold the call's blocks."""
-        need = 1 + scan_blocks(m, block)
+        return self.take_words(1 + scan_blocks(m, block))
+
+    def take_words(self, need: int) -> tuple[torch.Tensor, int]:
+        """(words, call number) for a call that uses `need` words; the
+        words grow (zeroed) to hold them."""
         if self.words.numel() < need:
             self.words = torch.zeros(max(need, 2 * self.words.numel()),
                                      dtype=torch.int64,
@@ -67,16 +73,17 @@ class ScanScratch:
         return self.words, self.call
 
 
-_scratch: dict = {}  # (device index, stream handle) -> ScanScratch
+_scratch: dict = {}  # (kind, device index, stream handle) -> ScanScratch
 
 
-def scan_scratch(dev) -> ScanScratch:
-    """The ScanScratch of dev's current stream: calls on one stream run in
-    order, so they can share it."""
+def scan_scratch(dev, kind: str = "scan") -> ScanScratch:
+    """The ScanScratch of dev's current stream for the kernels of `kind`
+    ("scan": compact and row_grid; "vote": the vote's slot map): calls on
+    one stream run in order, so they can share it."""
     dev = torch.device(dev)
     if dev.index is None:  # "cuda": the current device, as a tensor names it
         dev = torch.device("cuda", torch.cuda.current_device())
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    key = (kind, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _scratch:
         _scratch[key] = ScanScratch(dev)
     return _scratch[key]

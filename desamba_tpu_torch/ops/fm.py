@@ -217,9 +217,13 @@ def interval_search_state(fm: FmArrays, codes, lanes, max_rst, l_min,
                           sel=None) -> torch.Tensor:
     """Run up to max_steps steps of the backward search on every live lane
     of an [8, n] carry (with sel, int32[m] of distinct lane indices, on the
-    listed lanes only); returns the new carry. codes: int32[B2, W] read
-    codes; lanes/max_rst/l_min/l_max: int32[n]; all contiguous, on one
-    device."""
+    listed lanes only); returns the new carry. With sel, the CUDA route
+    updates `state` in place and returns it (no copy of the carry;
+    unlisted lanes stay as they are); the CPU route returns a new carry
+    and leaves `state` as it was. Callers use the returned carry and
+    never `state` after a resume. Without sel, both routes return a new
+    carry. codes: int32[B2, W] read codes; lanes/max_rst/l_min/l_max:
+    int32[n]; all contiguous, on one device."""
     n = state.shape[1]
     dev = state.device
     kernels.check("occ32", fm.occ32, torch.int32, device=dev)
@@ -236,7 +240,7 @@ def interval_search_state(fm: FmArrays, codes, lanes, max_rst, l_min,
     if not kernels.launch_device(state):
         return interval_search_plain(fm, codes, lanes, max_rst, l_min, l_max,
                                      state, max_steps, sel)
-    out = torch.empty_like(state) if sel is None else state.clone()
+    out = torch.empty_like(state) if sel is None else state
     with torch.cuda.device(dev):
         kernels.call("interval_search", kernels.ptr(fm.occ32),
                      fm.occ32.shape[0], kernels.ptr(fm.rank),

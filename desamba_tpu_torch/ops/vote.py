@@ -1,16 +1,19 @@
 """Stage 3's windowed diagonal vote.
 
 Counterpart of the vote in desamba_tpu/engine/fast_engine.py's stage3
-(:363-418; the window vote of cly.c:200-223): the located anchors are
-scattered into a dense [B2, A] layout (A = nwR * P slots a read row),
-each anchor is scored by the weights of the anchors of its row on the
-same reference within the read's diagonal tolerance, and three
-candidates are taken a row: the winner, the best on a far diagonal and
-the best on another reference.
+(:363-418; the window vote of cly.c:200-223): the located anchors fill
+A = nwR * P slots a read row (a dense [B2, A] layout in JAX and in the
+plain version), each anchor is scored by the weights of the anchors of
+its row on the same reference within the read's diagonal tolerance, and
+three candidates are taken a row: the winner, the best on a far
+diagonal and the best on another reference.
 
-`vote` has a hand-written CUDA kernel (csrc/vote.cu) and a plain torch
-version, `vote_plain`. The wrapper runs the plain version for tensors on
-the CPU; for CUDA tensors it launches the kernel or raises.
+`vote` has a hand-written CUDA kernel (csrc/vote.cu: a slot map, then
+one warp a read row) and a plain torch version, `vote_plain`. The
+wrapper runs the plain version for tensors on the CPU; for CUDA tensors
+it launches the kernel or raises. The kernel's slot map is a scratch for
+each device and stream (ops/compact.scan_scratch(dev, "vote")), whose
+words each call tags with its own number, so that it needs no fill.
 """
 from __future__ import annotations
 
@@ -18,8 +21,13 @@ import torch
 
 from .. import kernels
 from ..constants import VOTE_TILE
+from .compact import scan_scratch
 
 I32 = torch.int32
+# the most slots a read row (A = nwR * P) that the vote takes: the kernel
+# keeps a row's anchors and scores in shared memory (csrc/vote.cu
+# kMaxSlots); A = 664 at W = 8192, the widest bucket
+VOTE_MAX_SLOTS = 1 << 13
 
 
 def vote_plain(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
@@ -29,7 +37,7 @@ def vote_plain(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
     dev = ref.device
     P = ref.shape[1]
     A = nwR * P
-    b_i = (sel // nwR).long()
+    b_i = (sel // nwR).clamp(max=B2).long()  # B2 and above: dropped
     slot = ((sel % nwR)[:, None] * P
             + torch.arange(P, dtype=I32, device=dev)).long()
 
@@ -81,10 +89,13 @@ def vote(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
     """The vote on stage 2's NC compacted lanes after locate. ref, gpos:
     int32[NC, P] and pvalid bool[NC, P], as locate returns them; total_c,
     qleft_c, sel: int32[NC]; lengths2: int32[B2]. Lane c fills slots
-    (sel[c] % nwR) * P + p of read row sel[c] // nwR; sel[c] == B2 * nwR
-    marks an unused lane, which is dropped. The valid sel values (below
+    (sel[c] % nwR) * P + p of read row sel[c] // nwR; sel[c] >= B2 * nwR
+    (stage 2 fills B2 * nwR) marks an unused lane, which is dropped, as
+    JAX's scatter with mode="drop" drops it. The valid sel values (below
     B2 * nwR) are distinct and none is negative, as stage 2's row grid
-    makes them. Returns (ref_c, diag_c, vote_c), each int32[B2, 3]."""
+    makes them; they may come in any order. A row has at most
+    VOTE_MAX_SLOTS slots (nwR * P). Returns (ref_c, diag_c, vote_c), each
+    int32[B2, 3]."""
     n, P = ref.shape
     dev = ref.device
     kernels.check("ref", ref, I32, (n, P), dev)
@@ -94,23 +105,22 @@ def vote(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2, B2: int,
                     ("sel", sel)):
         kernels.check(name, t, I32, (n,), dev)
     kernels.check("lengths2", lengths2, I32, (B2,), dev)
-    if P < 1 or nwR < 1 or nwR * P > 2**30:
-        raise ValueError(f"vote: P={P}, nwR={nwR}; each must be >= 1, and "
-                         f"the kernel takes at most 2^30 slots a row")
+    if P < 1 or nwR < 1 or nwR * P > VOTE_MAX_SLOTS or n >= 2**32:
+        raise ValueError(f"vote: P={P}, nwR={nwR}, {n} lanes; P and nwR "
+                         f"must be >= 1, and the kernel takes at most "
+                         f"{VOTE_MAX_SLOTS} slots a row and 2^32 - 1 lanes")
     if not kernels.launch_device(ref):
         return vote_plain(ref, gpos, pvalid, total_c, qleft_c, sel, lengths2,
                           B2, nwR)
-    A = nwR * P
-    # the dense ref, diagonal and weight rows and the scores
-    scratch = torch.empty((4, B2, A), dtype=I32, device=dev)
     out = torch.empty((3, B2, 3), dtype=I32, device=dev)
     if B2:
         with torch.cuda.device(dev):
+            # the slot map: a word a (row, window), tagged with the call
+            words, call = scan_scratch(dev, "vote").take_words(B2 * nwR)
             kernels.call("vote", kernels.ptr(ref), kernels.ptr(gpos),
                          kernels.ptr(pvalid), kernels.ptr(total_c),
                          kernels.ptr(qleft_c), kernels.ptr(sel), n, P,
-                         kernels.ptr(lengths2), B2, nwR,
-                         kernels.ptr(scratch), kernels.ptr(out),
-                         kernels.stream(dev))
+                         kernels.ptr(lengths2), B2, nwR, kernels.ptr(words),
+                         call, kernels.ptr(out), kernels.stream(dev))
         kernels.launches["vote"] += 1
     return out[0], out[1], out[2]

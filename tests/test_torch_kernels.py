@@ -1399,8 +1399,8 @@ def test_row_grid_kernel(cuda, S):
 def test_resume_kernels_through_an_index_list(cuda, tables, n):
     """interval_search_state and row_walks_state with sel (caps 1, n/8
     and past n of the live lanes) against their plain versions, which
-    gather, loop and scatter; K1's input carry is left as it was, and
-    K2's resume updates its carry in place, unlisted slots unchanged."""
+    gather, loop and scatter; each resume updates its carry in place and
+    returns it, unlisted lanes and slots unchanged."""
     from desamba_tpu_torch.ops.compact import compact
     from desamba_tpu_torch.ops.fm import (interval_search_plain,
                                           interval_search_state, iv_init,
@@ -1412,12 +1412,13 @@ def test_resume_kernels_through_an_index_list(cuda, tables, n):
     args = (fm, d["codes"], d["lane"], d["max_rst"], d["l_min"], d["l_max"])
     st = interval_search_state(*args, iv_init(d["sp0"], d["ep0"],
                                               d["s_idx"]), 0)
-    kept = st.clone()
     mlen = torch.clamp(d["s_idx"] - 13, min=0).to(torch.int32)
     wst = rw_init(st[2], st[5])
     for cap in sorted({1, max(1, n // 8), n + 5}):
         sel = compact(st[6], cap)
-        got = interval_search_state(*args, st, 8, sel=sel)
+        # each kernel's resume updates its carry in place: it gets a copy
+        copy = st.clone()
+        got = interval_search_state(*args, copy, 8, sel=sel)
         ref = interval_search_plain(*args, st, 8, sel=sel)
         wsel = compact(wst[3], cap)
         # the kernel's resume updates the carry in place: it gets a copy
@@ -1428,11 +1429,11 @@ def test_resume_kernels_through_an_index_list(cuda, tables, n):
                                sel=wsel)
         torch.cuda.synchronize()
         assert torch.equal(got, ref) and torch.equal(wgot, wref), cap
-        assert wgot is wcopy
-        listed = torch.zeros(n, dtype=torch.bool, device=cuda)
-        listed[wsel[(wsel >= 0) & (wsel < n)].long()] = True
-        assert torch.equal(wgot[:, ~listed], wst[:, ~listed])
-        assert torch.equal(st, kept)
+        assert got is copy and wgot is wcopy
+        for new, old, lst in ((got, st, sel), (wgot, wst, wsel)):
+            listed = torch.zeros(n, dtype=torch.bool, device=cuda)
+            listed[lst[(lst >= 0) & (lst < n)].long()] = True
+            assert torch.equal(new[:, ~listed], old[:, ~listed]), cap
 
 
 @pytest.mark.cuda

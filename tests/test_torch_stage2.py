@@ -241,7 +241,67 @@ def test_resume_through_an_index_list_equals_jax(jax_cl, tables):
     assert torch.equal(wgot, wref) and not torch.equal(wgot, wst)
 
 
-# ------------------------------------------- K2's in-place resume --
+# ------------------------------------- K1's and K2's in-place resumes --
+def interval_search_in_place(fm, codes, lanes, max_rst, l_min, l_max, state,
+                             max_steps, sel=None):
+    """interval_search_state's CUDA contract on the CPU: a resume through
+    sel writes the listed lanes' new carry into `state` itself and
+    returns it; the call without sel returns a new carry."""
+    from desamba_tpu_torch.ops.fm import interval_search_plain
+
+    out = interval_search_plain(fm, codes, lanes, max_rst, l_min, l_max,
+                                state, max_steps, sel)
+    if sel is None:
+        return out
+    state.copy_(out)
+    return state
+
+
+def test_interval_search_in_place_resume_equals_jax(jax_cl, tables):
+    """K1's resume in place returns the carry it was given: the listed
+    lanes equal JAX's gather of the carry at those lanes, its
+    interval_search resumed with state=, and the scatter back
+    (fast_engine.py:245-275); every unlisted lane is bit-identical to the
+    carry before the call, and entries of sel outside [0, n) (negative,
+    n and beyond) are skipped."""
+    from desamba_tpu.ops.fm import interval_search
+    from desamba_tpu_torch.ops.compact import compact_plain
+    from desamba_tpu_torch.ops.fm import interval_search_plain, iv_init
+
+    fm, jfm = tables[0], jax_cl.fm
+    n = 3000
+    d = _search_inputs(fm, n, 300, seed=13)
+    per_lane = (d["lane"], d["max_rst"], d["l_min"], d["l_max"])
+    st = interval_search_plain(fm, d["codes"], *per_lane,
+                               iv_init(d["sp0"], d["ep0"], d["s_idx"]),0)
+    sel = compact_plain(st[6], 96)
+    assert _live(st[6]) > 96
+    sel = torch.cat([sel[:40], torch.tensor([-1, n, n + 9], dtype=torch.int32),
+                     sel[40:].flip(0)])
+    before = st.clone()
+    got = interval_search_in_place(fm, d["codes"], *per_lane, st, 8,
+                                   sel=sel)
+    assert got is st
+    idx = sel[(sel >= 0) & (sel < n)].long()
+    keys = ("sp", "ep", "nsp", "nep", "match_len", "ptr", "done", "status")
+    jst = {k: jnp.asarray(before[i][idx].numpy())
+           for i, k in enumerate(keys)}
+    jst["done"] = jst["done"].astype(bool)
+    g = lambda t: jnp.asarray(t[idx].numpy())
+    res = interval_search(jfm, jnp.asarray(d["codes"].numpy()), 0,
+                          g(d["s_idx"]), g(d["sp0"]), g(d["ep0"]),
+                          *(g(t) for t in per_lane[1:]), max_steps=8,
+                          lanes=g(d["lane"]), state=jst, return_state=True)
+    ref = before.clone()
+    ref[:, idx] = torch.from_numpy(np.stack(
+        [np.asarray(res[k]).astype(np.int32) for k in keys]))
+    assert torch.equal(got, ref)
+    listed = torch.zeros(n, dtype=torch.bool)
+    listed[idx] = True
+    assert torch.equal(got[:, ~listed], before[:, ~listed])
+    assert not torch.equal(got[:, listed], before[:, listed])
+
+
 def row_walks_in_place(fm, codes, lanes, max_lens, state, trace_cap,
                        sel=None):
     """row_walks_state's CUDA contract on the CPU: a resume through sel
@@ -286,10 +346,11 @@ def test_in_place_resume_leaves_unlisted_slots(tables):
                          ids=["bursts0", "defaults"])
 def test_chunk_with_in_place_resumes_equals_jax(monkeypatch, jax_cl,
                                                 tables, bursts):
-    """A golden W = 2048 chunk through build_full, the row walks' two
-    resumes updating the carry in place (row_walks_in_place), equals
-    JAX's fused program: stage 2 never reads a carry after handing it to
-    a resume. With the bursts at 0 the walks' cuts bind."""
+    """A golden W = 2048 chunk through build_full, the interval search's
+    and the row walks' two resumes each updating the carry in place
+    (interval_search_in_place, row_walks_in_place), equals JAX's fused
+    program: stage 2 never reads a carry after handing it to a resume.
+    With the bursts at 0 the cuts bind."""
     from desamba_tpu.engine import fast_engine as jfe
     from desamba_tpu_torch.engine import fast_engine as tfe
     from desamba_tpu_torch.index.loader import load_index
@@ -302,13 +363,18 @@ def test_chunk_with_in_place_resumes_equals_jax(monkeypatch, jax_cl,
     fm, ek, loc, ra = tables
     calls = []
 
-    def recording(*a, sel=None):
-        calls.append(sel is not None)
-        return row_walks_in_place(*a, sel=sel)
+    def recording(in_place):
+        def call(*a, sel=None):
+            calls.append((in_place.__name__, sel is not None))
+            return in_place(*a, sel=sel)
+        return call
 
     full = tfe.build_full(ek.lek, ek.single_base_max, ek.mask_bits, 20,
                           ek.n_words0,
-                          dict(tfe.PLAIN_OPS, row_walks=recording))
+                          dict(tfe.PLAIN_OPS,
+                               interval_search=recording(
+                                   interval_search_in_place),
+                               row_walks=recording(row_walks_in_place)))
     reads = _golden_reads(min_len=1025, max_len=2048)
     packed, lens, _ = jax_cl._encode(reads, W=2048, Bp=64)
     got = full(fm, loc, ra, ek.w01, torch.from_numpy(packed),
@@ -318,6 +384,8 @@ def test_chunk_with_in_place_resumes_equals_jax(monkeypatch, jax_cl,
                                     jek.mask_bits, 20, jek.n_words0))
     ref = jfull(jax_cl.fm, jax_cl.loc, jax_cl.ra, jek.w01,
                 jnp.asarray(packed), jnp.asarray(lens))
-    assert calls == [False, True, True]
+    assert calls == [(f"{k}_in_place", r) for k in ("interval_search",
+                                                    "row_walks")
+                     for r in (False, True, True)]
     _eq(ref, got, "build_full [7, Bp]")
     assert int((got[1] >= 0).sum()) > 0

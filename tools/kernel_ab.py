@@ -1,34 +1,41 @@
-"""Time the stage-1 kernel (K4 + K5), the row walks (K2), locate (K6)
-and the compaction scan (K3: compact, row_grid) against an earlier
-commit's, in turns, on the chunks of chip_smoke.py, on one GPU.
+"""Time the stage-1 kernel (K4 + K5), the interval search (K1), the row
+walks (K2), locate (K6), the compaction scan (K3: compact, row_grid)
+and the vote (K7) against an earlier commit's, in turns, on the chunks
+of chip_smoke.py, on one GPU.
 
-    mkdir -p build/parent
-    for f in stage1.cu row_walks.cu bloom.cuh locate.cu compact.cu \
-        wrap.cuh; do
-      git show <commit>:desamba_tpu_torch/csrc/$f > build/parent/$f; done
-    python3 tools/kernel_ab.py build/parent
+    mkdir -p build/parent build/tmp
+    git archive <commit> desamba_tpu_torch/csrc | tar -x -C build/tmp
+    cp build/tmp/desamba_tpu_torch/csrc/* build/parent/
+    python3 tools/kernel_ab.py build/parent [--earlier vote]
 
 Builds the parent's sources of NAMES with kernels.NVCC_FLAGS into that
 directory and puts their C entry points under the port's own wrappers
-(parent_kernels). stage1, row_walks and locate have the same C
-interfaces as the current kernels and load with the argtypes of
-kernels.KERNELS. A parent whose compact and row_grid are the earlier
-two-launch scan takes an int32 scratch of one count a block in place of
-the scan's words and call number: PARENT_ARGTYPES loads them, and an
-adapter hands them one such scratch that it keeps (the parent's wrapper
-made one a call with torch.empty, which launches nothing). The parent's resume
-wrote into a copy of the carry that its wrapper made; parent_kernels
-hands the wrapper that copy (copy=True). Makes the smoke's bench data
-(chip_smoke.make_data, cached under build/bench_cache) and captures the
-kernels' calls on the first chunk of each width bucket
-(chip_smoke.kernel_inputs: stage 1's call, K2's burst, mid and tail
-resume, locate's call, compact's first call and first through a source
-list, row_grid's call). Both sides' outputs must equal the plain
-versions', or the run fails. Then, with L2 evicted before each call
-(chip_smoke.cuda_ms, median of 20): each call parent, current, current,
-parent (the resumes' parent also without its copy, parent_kernel_ms),
-and the host's time a call (host_us: the wrapper's enqueue, median of
-200, in the same turns); the parent's K2 sweep over
+(parent_kernels). An entry point loads with the argtypes of
+kernels.KERNELS, save one that `--earlier NAME` names: its parent has
+the earlier C interface of PARENT_ARGTYPES, and it runs under an
+adapter. The only such one is the vote of 670d0e2 and before (fill,
+scatter, a block a row): it takes an int32 [4, B2, A] scratch of dense
+rows in place of the slot map's words and call number, and
+vote_adapter makes one a call with torch.empty, as its wrapper did
+(launching nothing). A parent's resume of K1 or K2 wrote into a copy of
+the carry that its wrapper made; the current wrappers update the carry
+in place (chip_smoke.IN_PLACE), so parent_kernels hands them that copy
+(copy=True). Makes
+the smoke's bench data (chip_smoke.make_data, cached under
+build/bench_cache) and captures the kernels' calls on the first chunk of
+each width bucket (chip_smoke.kernel_inputs: stage 1's call, K1's and
+K2's burst, mid and tail resume, locate's call, compact's first call and
+first through a source list, row_grid's call, the vote's call). Both
+sides' outputs must equal the plain versions', or the run fails. Then,
+with L2 evicted before each call (chip_smoke.cuda_ms, median of 20):
+each call parent, current, current, parent (the resumes' parent also
+without its copy, parent_kernel_ms; K1's calls also each side's C entry
+point in place beside the chain alone, chip_smoke.k1_floor; the vote's
+launches each alone, kernel_rows_ms), and the host's time a
+call (host_us: the wrapper's enqueue, median of 200, in the same
+turns); each side's hand kernels in one profiled pure-device
+classify_batch (path: device ms and launches of each CUDA function of
+K1 and K7); the parent's K2 sweep over
 chip_smoke.WALK_SWEEP_CAPS beside the bare pointer chase
 (chip_smoke.walk_sweep) on the first chunk's burst carry; and
 pure-device classify_batch reads/s of all reads in N_PAIRS pairs, the
@@ -53,23 +60,57 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("stage1", "row_walks", "locate", "compact", "row_grid")
+NAMES = ("stage1", "interval_search", "row_walks", "locate", "compact",
+         "row_grid", "vote")
 # the calls of each chunk timed in turns (chip_smoke.kernel_inputs' keys)
-KEYS = ("stage1", "row_walks", "row_walks[sel]", "row_walks[sel]#2",
-        "locate", "compact", "compact[src]", "row_grid")
+KEYS = ("stage1", *cs.K1_CALLS, "row_walks", "row_walks[sel]",
+        "row_walks[sel]#2", "locate", "compact", "compact[src]",
+        "row_grid", "vote")
+# the hand kernels whose CUDA functions the path profile reports
+PATH_NAMES = ("interval_search", "vote")
 N_PAIRS = 10  # pairs of (parent, current) pure-device classify_batch turns
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the two-launch scan's entry points: (..., cap, counts, n_counts, out,
-# stream)
+# the earlier C interface that `--earlier vote` names: the three-launch
+# vote's (..., B2, nwR, scratch, out, stream)
 PARENT_ARGTYPES = {
-    "compact": [_P, _LL, _P, _LL, _I, _P, _LL, _P, _P],
-    "row_grid": [_P, _P, _P, _P, _LL, _I, _I, _P, _LL, _P, _P, _P, _P],
+    "vote": [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P],
 }
 
 
-def build_parent(pdir: str) -> tuple[dict, dict]:
+def function_name(key: str) -> str:
+    """A CUDA kernel's function name from a profiler row's key."""
+    import re
+
+    hit = re.search(r"(\w+)(<[^()]*>)?\(",
+                    key.replace("(anonymous namespace)", ""))
+    return hit.group(1) if hit else key[:60]
+
+
+def kernel_rows_ms(fn, match: str, n: int = 20) -> dict:
+    """{CUDA function: device ms a launch} of fn's kernels whose profiler
+    row names `match`, over n calls, each after an L2 flush (the flush's
+    own kernels are not counted): the parts of a call of several
+    launches, each cold."""
+    import torch
+
+    flush = torch.empty(cs.L2_FLUSH_BYTES, dtype=torch.uint8,
+                        device="cuda")
+    fn()
+
+    def calls():
+        for _ in range(n):
+            flush.zero_()
+            fn()
+
+    return {function_name(e.key): e.self_device_time_total / 1e3
+            / max(1, e.count)
+            for e in cs.device_rows(calls) if match in e.key}
+
+
+def build_parent(pdir: str, earlier: set) -> tuple[dict, dict]:
     """({kernel: ctypes function}, chip_smoke.ptxas_report) of the
-    parent's sources in pdir."""
+    parent's sources in pdir; the kernels that `earlier` names load with
+    PARENT_ARGTYPES under their adapter."""
     from desamba_tpu_torch import kernels
 
     nvcc = kernels._nvcc()
@@ -90,33 +131,34 @@ def build_parent(pdir: str) -> tuple[dict, dict]:
         src, entry, argtypes = kernels.KERNELS[name]
         logs[name] = dict(log=libs[src][1])
         fn = getattr(ctypes.CDLL(libs[src][0]), entry)
-        fn.argtypes = PARENT_ARGTYPES.get(name, argtypes)
+        fn.argtypes = PARENT_ARGTYPES[name] if name in earlier else argtypes
         fn.restype = ctypes.c_int
-        fns[name] = scan_adapter(fn) if name in PARENT_ARGTYPES else fn
+        fns[name] = vote_adapter(fn) if name in earlier else fn
     return fns, cs.ptxas_report(logs)
 
 
-def scan_adapter(fn):
-    """The parent's two-launch compact or row_grid entry point fn under
-    the current C interface: the scan's words, their length and the call
-    number become one int32 scratch of a count a block (16,384 blocks of
-    1,024 entries), which the adapter keeps."""
+def vote_adapter(fn):
+    """The parent's three-launch vote entry point fn under the current C
+    interface: the slot map's words and the call number become an int32
+    [4, B2, A] scratch of the dense rows, made a call with torch.empty as
+    the parent's wrapper made it."""
     import torch
 
-    counts = torch.empty(1 << 14, dtype=torch.int32, device="cuda")
-
     def call(*a):
-        # (..., cap, words, n_words, call, outputs..., stream)
-        i = 5 if len(a) == 10 else 7
-        return fn(*a[:i], ctypes.c_void_p(counts.data_ptr()), counts.numel(),
-                  *a[i + 3:])
+        # (ref, ..., sel, n, P, lengths2, B2, nwR, words, call, out,
+        # stream)
+        P, B2, nwR = a[7], a[9], a[10]
+        scratch = torch.empty((4, B2, nwR * P), dtype=torch.int32,
+                              device="cuda")
+        return fn(*a[:11], ctypes.c_void_p(scratch.data_ptr()), *a[13:])
     return call
 
 
 @contextlib.contextmanager
 def parent_kernels(fns: dict, copy: bool = True):
     """The port's wrappers on the parent's C entry points fns; with copy,
-    K2's resume runs on a copy of the carry, as the parent's wrapper
+    a resume that the current wrapper makes in place (chip_smoke.IN_PLACE:
+    K1's and K2's) runs on a copy of the carry, as the parent's wrapper
     made one (state.clone()) for its kernel to write."""
     from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine import fast_engine
@@ -124,26 +166,36 @@ def parent_kernels(fns: dict, copy: bool = True):
     for name in NAMES:
         kernels._fn(name)  # the current entry points, loaded
     saved = {k: kernels._fns[k] for k in NAMES}
-    rw = fast_engine.KERNEL_OPS["row_walks"]
+    ops = {k: fast_engine.KERNEL_OPS[k] for k in cs.IN_PLACE}
 
-    def rw_copy(fm, codes, lanes, max_lens, state, cap, sel=None):
-        return rw(fm, codes, lanes, max_lens,
-                  state if sel is None else state.clone(), cap, sel=sel)
+    def copying(name):
+        kern, i = ops[name], cs.IN_PLACE[name]
+
+        def call(*a, sel=None):
+            if sel is not None:
+                a = (*a[:i], a[i].clone(), *a[i + 1:])
+            return kern(*a, sel=sel)
+        return call
 
     kernels._fns.update(fns)
     if copy:
-        fast_engine.KERNEL_OPS["row_walks"] = rw_copy
+        for name in cs.IN_PLACE:
+            fast_engine.KERNEL_OPS[name] = copying(name)
     try:
         yield
     finally:
         kernels._fns.update(saved)
-        fast_engine.KERNEL_OPS["row_walks"] = rw
+        fast_engine.KERNEL_OPS.update(ops)
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    earlier = {args[i + 1] for i in range(len(args) - 1)
+               if args[i] == "--earlier"}
+    if (not args or args[0].startswith("-") or not torch.cuda.is_available()
+            or not earlier <= set(PARENT_ARGTYPES)):
         print(__doc__, file=sys.stderr)
         return 2
     from desamba_tpu_torch import kernels
@@ -156,7 +208,7 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     info = kernels.build_all(extra=("measure.cu",))
-    fns, parent_ptxas = build_parent(sys.argv[1])
+    fns, parent_ptxas = build_parent(args[0], earlier)
     ptxas = cs.ptxas_report(info)
     _, fq, idx_dir = cs.make_data()
     cl = FastClassifier(load_index(idx_dir), device="cuda")
@@ -187,6 +239,7 @@ def main() -> int:
         return dict(parent_ms=[t[0], t[3]], ms=[t[1], t[2]],
                     parent_host_us=[h[0], h[3]], host_us=[h[1], h[2]])
 
+    measure = info["measure.cu"]["path"]
     for W in sorted(chunks):
         cap = cs.kernel_inputs(cl, *chunks[W][:2])
         for key in KEYS:
@@ -218,6 +271,14 @@ def main() -> int:
                 with parent_kernels(fns, copy=False):
                     r["parent_kernel_ms"] = cs.cuda_ms(fn, 20, cold=True,
                                                        prep=prep)
+            if name == "interval_search":
+                r["floor"] = cs.k1_floor(measure, args, kw)
+                r["parent_kernel_ms"] = cs.k1_floor(
+                    measure, args, kw, fn=fns[name])["kernel_ms"]
+            if name == "vote":
+                r["rows_ms"] = kernel_rows_ms(fn, "vote")
+                with parent_kernels(fns):
+                    r["parent_rows_ms"] = kernel_rows_ms(fn, "vote")
             res[name][f"{key} W={W}"] = r
             cs.log(f"kernel_ab: {key} W={W}: {r}")
         if W == min(chunks):
@@ -231,6 +292,20 @@ def main() -> int:
     cl.exact_fallback = False
     cl.classify_batch(reads, block=cs.BLOCK)
     first = cs.tup(cl.classify_batch(reads, block=cs.BLOCK))
+
+    def path_rows() -> dict:
+        """{CUDA function: [device ms, launches]} of PATH_NAMES' kernels
+        in one profiled pure-device classify_batch."""
+        ev = cs.device_rows(lambda: cl.classify_batch(reads,
+                                                      block=cs.BLOCK))
+        return {function_name(e.key): [e.self_device_time_total / 1e3,
+                                          e.count]
+                for e in ev if any(k in e.key for k in PATH_NAMES)}
+
+    res["path"] = dict(current=path_rows())
+    with parent_kernels(fns):
+        res["path"]["parent"] = path_rows()
+    cs.log(f"kernel_ab: path {res['path']}")
 
     def pairs(a, b) -> dict:
         """reads/s of N_PAIRS pairs of three calls a side, side "a" first
