@@ -43,12 +43,13 @@ Phases (any failure raises, and the script exits nonzero):
      nothing else (k1_floor), on the first chunk of each width bucket
      (the `k1_floor` line); stage 1 on
      tests/test_torch_stage1.stage1_cases (every width bucket, lek 13-31,
-     three bitmaps, every case reached); stage 1, K1's and K2's three
-     calls each, compact's first call and first through a source list,
-     row_grid, locate and the vote held and timed likewise on the first
-     chunk of each other width bucket and on the W = 4096 and 8192
-     encodings below (check_chunk_calls; stage 1 and K2 in the
-     `stage1_row_walks` line); compact's, row_grid's, K1's and the vote's
+     three bitmaps, every case reached); unpack, stage 1, K1's and K2's
+     three calls each, compact's first call and first through a source
+     list, row_grid, locate, the vote, band_windows and combine held and
+     timed likewise on the first chunk of each other width bucket and on
+     the W = 4096 and 8192 encodings below (check_chunk_calls; stage 1
+     and K2 in the `stage1_row_walks` line); compact's, row_grid's, K1's
+     and the vote's
      calls of every chunk launched back to back on one stream (their
      scratch, K1's carries in place), each equal to its plain version
      (check_back_to_back); locate on the first chunk of each width
@@ -88,9 +89,12 @@ Phases (any failure raises, and the script exits nonzero):
      launch gaps) beside its device time (the summed kernel rows of
      torch.profiler, per call, over 5 back-to-back calls, so L2 is warm)
      and, for stage 1, the kernel's bound, for the vote its kernel's time
-     (L2 evicted) beside its bound; every stage's and the fused
-     chunk's device time, span and launches per chunk (stage 2 at most
-     STAGE2_MAX_LAUNCHES, stage 3 at most STAGE3_MAX_LAUNCHES); then one
+     (L2 evicted) beside its bound, and stage 1's kernel cold, right
+     after stage 0's kernel and warm (stage1_after_unpack: whether it
+     finds unpack's codes2 in L2); every stage's and the fused chunk's
+     device time, span and launches per chunk (stage 2 at most
+     STAGE2_MAX_LAUNCHES, stage 3 at most STAGE3_MAX_LAUNCHES), and each
+     kernel's device time in the fused chunk; then one
      pure-device classify_batch unprofiled and one under torch.profiler:
      device busy share = kernel time over the unprofiled wall, and each
      hand kernel's device time per launch as the path runs it
@@ -145,6 +149,10 @@ Phases (any failure raises, and the script exits nonzero):
      the one-device path's pure-device reads/s in turns; then two ranks
      over gloo on this one card (parallel.dryrun on the golden index, in
      child processes), each of which must launch the kernels
+After phase 7 it prints the `ranking` line: RANKED (stage 0's and stage
+4's kernels outside the band scorer, and the merge) by launches a batch x
+(cold ms - bound ms), the weight by which the kernel redesigns are
+chosen, each with the share of its bound it reaches.
 Prints a `kernels` JSON line (the fast path's eleven kernels, the
 validation engine's two, the sharded path's merge, then the data-parallel
 path's taxon weights; K1's row also carries its validation-path call, the
@@ -350,8 +358,10 @@ def device_rows(fn):
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, n: int = 5):
-    """(device ms per call, kernels per call) of fn over n profiled calls."""
+def device_ms(fn, n: int = 5, by_kernel: bool = False):
+    """(device ms per call, kernels per call) of fn over n profiled calls;
+    by_kernel: also {fast-path kernel: its CUDA functions' device ms a
+    call} (GLOBAL)."""
     fn()
 
     def calls():
@@ -359,8 +369,13 @@ def device_ms(fn, n: int = 5):
             fn()
 
     ev = device_rows(calls)
-    return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
-            sum(e.count for e in ev) / n)
+    out = (sum(e.self_device_time_total for e in ev) / 1e3 / n,
+           sum(e.count for e in ev) / n)
+    if not by_kernel:
+        return out
+    return (*out, {k: sum(e.self_device_time_total for e in ev
+                          if any(g in e.key for g in fs)) / 1e3 / n
+                   for k, fs in GLOBAL.items()})
 
 
 def checked_device_ms(fn, n: int = 5, tries: int = 3) -> dict:
@@ -1072,6 +1087,21 @@ SHAPES = {
 }
 
 
+# kernels whose bytes are mostly writes: each is timed beside a memset of
+# as many bytes as its outputs hold, the card's write rate under the same
+# cold protocol (the flush leaves L2 full of dirty lines)
+WRITE_FLOORS = ("unpack", "band_windows")
+
+
+def write_floor_ms(out) -> float:
+    """Cold ms (median of 20) of one memset (zero_) over as many bytes as
+    the tensors of the tuple out hold: writing them and nothing else."""
+    import torch
+
+    buf = torch.empty(nbytes(*out), dtype=torch.uint8, device="cuda")
+    return cuda_ms(buf.zero_, 20, cold=True)
+
+
 def check_kernels(cap: dict) -> dict:
     """Each kernel against its plain version on each of its captured
     calls, keyed as kernel_inputs keys them."""
@@ -1112,6 +1142,8 @@ def check_kernels(cap: dict) -> dict:
                         library_ms=library_ms, shape=shape)
         if name == "stage1":
             out[key]["bound_old_ms"] = stage1_old_bound(args, ref)
+        if name in WRITE_FLOORS:
+            out[key]["write_floor_ms"] = write_floor_ms(ref)
         if name == "vote":
             out[key]["bound_terms"] = bound_terms(*vote_work(*args))
             log(f"smoke: vote bound terms {out[key]['bound_terms']}")
@@ -1120,7 +1152,10 @@ def check_kernels(cap: dict) -> dict:
             + (f", torch.nonzero {library_ms:.4f} ms"
                if library_ms is not None else "")
             + (f", earlier bound {out[key]['bound_old_ms']:.4f} ms"
-               if "bound_old_ms" in out[key] else ""))
+               if "bound_old_ms" in out[key] else "")
+            + (", a memset of its output bytes "
+               f"{out[key]['write_floor_ms']:.4f} ms"
+               if "write_floor_ms" in out[key] else ""))
     return out
 
 
@@ -1130,12 +1165,14 @@ def stage1_old_bound(args, out) -> float:
     return bound_of(*stage1_work(args, out, rolled=False))[0]
 
 
-# another chunk's calls that check_chunk_calls holds and times: stage 1,
-# K1's three and K2's three, the compactions' first and first through a
-# source list, the row grid, locate and the vote
-CHUNK_CALLS = ("stage1", *K1_CALLS, "row_walks", "row_walks[sel]",
-               "row_walks[sel]#2", "compact", "compact[src]", "row_grid",
-               "locate", "vote")
+# another chunk's calls that check_chunk_calls holds and times: stage 0,
+# stage 1, K1's three and K2's three, the compactions' first and first
+# through a source list, the row grid, locate, the vote and stage 4's
+# window gather and combine
+CHUNK_CALLS = ("unpack", "stage1", *K1_CALLS, "row_walks",
+               "row_walks[sel]", "row_walks[sel]#2", "compact",
+               "compact[src]", "row_grid", "locate", "vote", "band_windows",
+               "combine")
 
 
 # the calls that phase 7 holds and times on each shard's first chunk
@@ -1176,10 +1213,14 @@ def check_chunk_calls(cap: dict, label: str, keys=CHUNK_CALLS) -> dict:
                                 f" {k}={v.numel()}" for k, v in kw.items()))
         if name == "stage1":
             r["bound_old_ms"] = stage1_old_bound(args, ref)
+        if name in WRITE_FLOORS:
+            r["write_floor_ms"] = write_floor_ms(ref)
         log(f"smoke: {key} at {label} [{r['shape']}] equal; kernel "
             f"{r['ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
             + (f", earlier bound {r['bound_old_ms']:.4f} ms"
-               if "bound_old_ms" in r else ""))
+               if "bound_old_ms" in r else "")
+            + (f", a memset of its output bytes {r['write_floor_ms']:.4f} ms"
+               if "write_floor_ms" in r else ""))
     return out
 
 
@@ -1632,11 +1673,15 @@ def where_time_goes(cl, chunks: dict, reads, card: str,
         row = {}
         fns, s1_io = stage_calls(cl, packed, lens, KERNEL_OPS)
         for name, fn in fns.items():
-            dev, nk = device_ms(fn)
+            dev, nk, *by = device_ms(fn, by_kernel=name == "fused")
             row[name] = dict(span_ms=cuda_ms(fn), device_ms=dev,
                              kernels_per_call=nk)
+            if by:
+                row[name]["kernel_device_ms"] = by[0]
         row["1 probe+seeds"]["bound_ms"] = bound("stage1", *s1_io)[0]
         row["1 probe+seeds"]["bound_old_ms"] = stage1_old_bound(*s1_io)
+        row["1 probe+seeds"]["after_unpack"] = stage1_after_unpack(
+            cl, packed, lens, s1_io[0])
         # the vote kernel (L2 evicted) beside its bound (ms, "bytes" or
         # "operations"): phase 2 timed it on the first chunk
         if W == min(chunks):
@@ -1684,6 +1729,96 @@ def where_time_goes(cl, chunks: dict, reads, card: str,
         wall_ms_profiled=box["wall"] * 1e3, device_ms=busy * 1e3,
         device_busy_share=busy / wall, top_kernels=top,
         hand_kernels=on_path))
+
+
+def stage1_after_unpack(cl, packed, lens, s1_args) -> dict:
+    """Stage 1's kernel on a chunk (s1_args: its captured call), each
+    median of 20 with the host's launch time hidden: cold (L2 evicted),
+    right after stage 0's kernel on the chunk (L2 evicted, then unpack,
+    then stage 1 timed on unpack's codes2 and lengths2) and warm (L2 as
+    the call before left it): whether stage 1 finds codes2 in L2."""
+    import statistics
+
+    import torch
+
+    from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS
+
+    p = torch.from_numpy(packed).to(cl.device)
+    ln = torch.from_numpy(lens).to(cl.device)
+    w01, _, _, *rest = s1_args
+    s1 = KERNEL_OPS["stage1"]
+    box = {}
+
+    def produce():
+        box["out"] = KERNEL_OPS["unpack"](p, ln)
+
+    def after():
+        codes2, _, _, l2 = box["out"]
+        return s1(w01, codes2, l2, *rest)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def spun(fn, evict: bool, before=None) -> float:
+        """cuda_ms(cold=True)'s protocol, the eviction optional and before
+        (fn's producer) run after it, outside the events"""
+        if before is not None:
+            before()
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(20):
+            if evict:
+                flush.zero_()
+            if before is not None:
+                before()
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    out = dict(cold_ms=cuda_ms(lambda: s1(*s1_args), 20, cold=True),
+               after_unpack_ms=spun(after, True, produce),
+               warm_ms=spun(lambda: s1(*s1_args), False))
+    log(f"smoke: stage 1 at W={packed.shape[1] * 2}: cold "
+        f"{out['cold_ms']:.4f} ms, right after unpack "
+        f"{out['after_unpack_ms']:.4f} ms, warm {out['warm_ms']:.4f} ms")
+    return out
+
+
+# the kernels that the ranking of redesigns weighs: stage 0's, stage 4's
+# two around the band scorer, and the sharded path's merge
+RANKED = ("unpack", "band_windows", "combine", "shard_merge")
+
+
+def ranking(first: dict, more: dict, on_path: dict, launches: dict,
+            merge: dict) -> list:
+    """RANKED by launches a batch x (cold ms - bound ms) on the first
+    chunk of the narrowest bucket (first: phase 2's checks; the merge on
+    phase 7's first chunk), each with its cold ms and bound on the other
+    chunks (more: check_chunk_calls' by chunk), its device ms a launch on
+    the path (on_path: phase 5's; the merge's from phase 7) and the share
+    of its bound it reaches cold. launches: phase 3's counts (three
+    batches)."""
+    out = []
+    for k in RANKED:
+        if k == "shard_merge":
+            r, n, path, other = merge, merge["launches"], merge["path_ms"], {}
+        else:
+            r, n = first[k], launches[k] / 3
+            path = on_path[k]["ms_per_launch"]
+            other = {W: dict(ms=c[k]["ms"], bound_ms=c[k]["bound_ms"])
+                     for W, c in more.items() if k in c}
+        out.append(dict(name=k, launches=n, ms=r["ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        path_ms=path, share_of_bound=r["bound_ms"] / r["ms"],
+                        weight_ms=n * (r["ms"] - r["bound_ms"]),
+                        other_chunks=other))
+    return sorted(out, key=lambda d: -d["weight_ms"])
 
 
 def make_golden_index() -> str:
@@ -2704,7 +2839,8 @@ def main() -> int:
         other_calls={W: {k: v for k, v in c.items()
                          if k.startswith("row_walks")}
                      for W, c in more.items()})
-    for k in ("compact", "row_grid", "locate"):
+    for k in ("compact", "row_grid", "locate", "unpack", "band_windows",
+              "combine"):
         rows[names.index(k)]["other_calls"] = {
             W: {key: v for key, v in c.items() if key.split("[")[0] == k}
             for W, c in more.items()}
@@ -2730,6 +2866,8 @@ def main() -> int:
     rows.append(dict(name="shard_merge", route="cuda",
                      source=kernels.source_path("shard_merge"),
                      replaces=REPLACES["shard_merge"], **sh["merge"]))
+    print("ranking " + json.dumps(dict(card=card, kernels=ranking(
+        checks, more, on_path, launches, sh["merge"]))), flush=True)
 
     # ---- phase 8: the data-parallel classifier and K13
     dp = data_parallel_phase(cl, idx, reads, chunks, res_dev, gidx_dir,

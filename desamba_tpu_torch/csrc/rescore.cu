@@ -1,6 +1,6 @@
 // Stage 4 around the band scorer: the candidate-window gather before it
-// (band_windows, one block per candidate) and the strand and candidate
-// combine after it (combine, one thread per read).
+// (band_windows, a warp a read row) and the strand and candidate combine
+// after it (combine, one thread per read).
 //
 // Replaces the plain parts of desamba_tpu/engine/fast_engine.py's stage4:
 // - band_windows: the 16-aligned word gather from ref_words_lsb, the
@@ -21,12 +21,27 @@
 // subtract in uint32 and shift the aligned start arithmetically; every
 // gather index is clamped as the plain version clamps it.
 //
-// What bounds them on this card: bytes. band_windows writes
-// B2*C*(W/16 + nw + 3) int32 and reads one window of ref_words_lsb a
-// candidate; combine reads 5 int32 a candidate and writes 6 a read. Both
-// do a few integer operations an element. band_windows gives each
-// candidate a block whose threads copy consecutive words; combine keeps a
-// read's 2C candidates in registers across its passes.
+// What bounds them on this card: band_windows moves bytes (it writes
+// B2*C*(W/16 + nw + 3) int32 and reads the read words once and one window
+// of ref_words_lsb a candidate) but a call is short enough that its
+// dependent loads show: the candidate's diagonal before its window, its
+// ref before the bounds. The earlier design (a block of 128 threads a
+// candidate) loaded the read row once a candidate, left most threads of
+// its second window pass idle and ended every block with one thread's
+// chain of dependent loads. Here a warp takes a read row and its C
+// candidates (kRows rows a block): lanes 0..C-1 load the candidates
+// first, then every lane loads its pieces of the read row, so the
+// candidates' loads and the bounds' dependent loads overlap the row's;
+// the row is stored C times from registers, VR words a store; the C
+// windows, contiguous in win_w, are one span of C*nw words that the warp
+// gathers (each lane all its loads of a batch before its stores, the
+// window start of candidate c from lane c by a shuffle) and stores VW
+// words a store. Two variants: VR = 4, VW = 2 (16-byte row pieces,
+// 8-byte window pieces), which every width of the path takes (W/16 a
+// multiple of 4, nw = W/16 + K/16 + 1 even: 138 at W = 2048), and
+// VR = VW = 1 for any other width or alignment.
+// combine reads 5 int32 a candidate and writes 6 a read, a thread a
+// read with its 2C candidates in registers across its passes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -37,40 +52,158 @@ namespace {
 using dsb::add_wrap;
 using dsb::sub_wrap;
 
+constexpr int kRows = 8;     // read rows (warps) a block of band_windows
+constexpr int kRowRegs = 4;  // row pieces a lane holds at once
+constexpr int kWinBatch = 8; // window pieces a lane loads before storing
+
 __device__ __forceinline__ long long clamp_index(long long i, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
-__global__ void band_windows_kernel(
+// V consecutive words as one load or store of 4V bytes
+template <int V>
+__device__ __forceinline__ void load_words(const int* src, unsigned (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (V == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = static_cast<unsigned>(__ldg(src));
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_words(int* dst, const unsigned (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(x[0], x[1]);
+  } else {
+    *dst = static_cast<int>(x[0]);
+  }
+}
+
+// One warp a read row b: its C candidates f = b*C + c. VR: words a store
+// of the row copies (Wq % VR == 0); VW: of the windows (nw % VW == 0).
+template <int VR, int VW>
+__global__ void __launch_bounds__(32 * kRows) band_windows_kernel(
     const int* __restrict__ ref_c, const int* __restrict__ diag_c,
     const int* __restrict__ read_w2, const int* __restrict__ lengths2,
     const int* __restrict__ ref_words, long long total_w,
     const int* __restrict__ ref_offset, const int* __restrict__ ref_len,
-    long long n_ref, long long C, long long Wq, long long nw, int band,
-    int* __restrict__ rw_f, int* __restrict__ rl_f, int* __restrict__ win_w,
-    int* __restrict__ rel_lo, int* __restrict__ rel_hi) {
-  const long long f = blockIdx.x;  // candidate b * C + c
-  const long long lane = f / C;
-  // the band's start aligned down to a 16-code word: (diag - band) & ~15
+    long long n_ref, long long B2, int C, long long Wq, long long nw,
+    int band, int* __restrict__ rw_f, int* __restrict__ rl_f,
+    int* __restrict__ win_w, int* __restrict__ rel_lo,
+    int* __restrict__ rel_hi) {
+  const int lane = threadIdx.x & 31;
+  const long long b = blockIdx.x * static_cast<long long>(kRows) +
+                      (threadIdx.x >> 5);
+  if (b >= B2) return;
+  const long long f0 = b * C;  // the row's first candidate
+  // lane c < C: candidate c's ref, diagonal and the row's length, loaded
+  // before anything else
+  const bool cand = lane < C;
+  int r = -1, d = 0, rl = 0;
+  if (cand) {
+    r = __ldg(ref_c + f0 + lane);
+    d = __ldg(diag_c + f0 + lane);
+    rl = __ldg(lengths2 + b);
+  }
+  // the row's first pieces (VR words each), lane i pieces i + 32k
+  const long long n_pieces = Wq / VR;
+  const int* row = read_w2 + b * Wq;
+  unsigned x[kRowRegs][VR];
+#pragma unroll
+  for (int k = 0; k < kRowRegs; ++k) {
+    const long long p = lane + 32 * k;
+    if (p < n_pieces) load_words<VR>(row + p * VR, x[k]);
+  }
+  // the band's start aligned down to a 16-code word, (diag - band) & ~15,
+  // and the bounds' loads of the candidate's ref (clamped)
   const int g0a = static_cast<int>(
-      (static_cast<unsigned>(diag_c[f]) - static_cast<unsigned>(band)) &
-      ~15u);
-  const long long w0 = g0a >> 4;  // arithmetic: a floor division by 16
-  for (long long j = threadIdx.x; j < nw; j += blockDim.x) {
-    win_w[f * nw + j] = __ldg(ref_words + clamp_index(w0 + j, total_w));
-  }
-  for (long long j = threadIdx.x; j < Wq; j += blockDim.x) {
-    rw_f[f * Wq + j] = __ldg(read_w2 + lane * Wq + j);
-  }
-  if (threadIdx.x == 0) {
-    rl_f[f] = __ldg(lengths2 + lane);
-    const int r = ref_c[f];
+      (static_cast<unsigned>(d) - static_cast<unsigned>(band)) & ~15u);
+  const int w0 = g0a >> 4;  // arithmetic: a floor division by 16
+  int lo = 0, len = 0;
+  if (cand) {
     const long long rc = clamp_index(r, n_ref);
-    const int lo = __ldg(ref_offset + rc);
-    const int hi = add_wrap(lo, __ldg(ref_len + rc));
-    rel_lo[f] = r >= 0 ? sub_wrap(lo, g0a) : 0;
-    rel_hi[f] = r >= 0 ? sub_wrap(hi, g0a) : 0;
+    lo = __ldg(ref_offset + rc);
+    len = __ldg(ref_len + rc);
   }
+  // the row, C times: chunks of 32 * kRowRegs pieces
+  for (long long p0 = 0; p0 < n_pieces; p0 += 32 * kRowRegs) {
+    if (p0 > 0) {
+#pragma unroll
+      for (int k = 0; k < kRowRegs; ++k) {
+        const long long p = p0 + lane + 32 * k;
+        if (p < n_pieces) load_words<VR>(row + p * VR, x[k]);
+      }
+    }
+    for (int c = 0; c < C; ++c) {
+      int* dst = rw_f + (f0 + c) * Wq;
+#pragma unroll
+      for (int k = 0; k < kRowRegs; ++k) {
+        const long long p = p0 + lane + 32 * k;
+        if (p < n_pieces) store_words<VR>(dst + p * VR, x[k]);
+      }
+    }
+  }
+  // the C windows: one span of C * nw words at win_w + f0 * nw, in pieces
+  // of VW words; piece p is word q = p * VW of candidate q / nw
+  const unsigned span = static_cast<unsigned>(C * nw / VW);
+  int* wdst = win_w + f0 * nw;
+  for (unsigned p0 = 0; p0 < span; p0 += 32 * kWinBatch) {
+    unsigned y[kWinBatch][VW];
+#pragma unroll
+    for (int k = 0; k < kWinBatch; ++k) {
+      const unsigned p = p0 + lane + 32 * k;
+      const unsigned q = p * VW;
+      const unsigned c = p < span ? q / static_cast<unsigned>(nw) : 0u;
+      // every lane takes part in the shuffle; c < C <= 32
+      const long long start = __shfl_sync(0xffffffffu, w0, c) +
+                              static_cast<long long>(q - c * nw);
+#pragma unroll
+      for (int v = 0; v < VW; ++v) {
+        y[k][v] = p < span ? static_cast<unsigned>(__ldg(
+                                 ref_words + clamp_index(start + v, total_w)))
+                           : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kWinBatch; ++k) {
+      const unsigned p = p0 + lane + 32 * k;
+      if (p < span) store_words<VW>(wdst + p * VW, y[k]);
+    }
+  }
+  if (cand) {
+    const long long f = f0 + lane;
+    rl_f[f] = rl;
+    rel_lo[f] = r >= 0 ? sub_wrap(lo, g0a) : 0;
+    rel_hi[f] = r >= 0 ? sub_wrap(add_wrap(lo, len), g0a) : 0;
+  }
+}
+
+template <int VR, int VW>
+void launch_band_windows(long long blocks, cudaStream_t stream,
+                         const int* ref_c, const int* diag_c,
+                         const int* read_w2, const int* lengths2,
+                         const int* ref_words, long long total_w,
+                         const int* ref_offset, const int* ref_len,
+                         long long n_ref, long long B2, int C, long long Wq,
+                         long long nw, int band, int* rw_f, int* rl_f,
+                         int* win_w, int* rel_lo, int* rel_hi) {
+  band_windows_kernel<VR, VW><<<static_cast<unsigned>(blocks), 32 * kRows,
+                                0, stream>>>(
+      ref_c, diag_c, read_w2, lengths2, ref_words, total_w, ref_offset,
+      ref_len, n_ref, B2, C, Wq, nw, band, rw_f, rl_f, win_w, rel_lo,
+      rel_hi);
+}
+
+// whether v words divide n and every pointer aligns to 4v bytes
+bool fits(int v, long long n, const void* a, const void* b) {
+  return n % v == 0 && reinterpret_cast<uintptr_t>(a) % (4 * v) == 0 &&
+         reinterpret_cast<uintptr_t>(b) % (4 * v) == 0;
 }
 
 __global__ void combine_kernel(
@@ -137,16 +270,28 @@ extern "C" int dsb_band_windows(
     long long n_cand, long long C, long long Wq, long long nw, int band,
     void* rw_f, void* rl_f, void* win_w, void* rel_lo, void* rel_hi,
     void* stream) {
-  if (n_cand > 0) {
-    band_windows_kernel<<<static_cast<unsigned>(n_cand), 128, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(ref_c), static_cast<const int*>(diag_c),
-        static_cast<const int*>(read_w2), static_cast<const int*>(lengths2),
-        static_cast<const int*>(ref_words), total_w,
-        static_cast<const int*>(ref_offset), static_cast<const int*>(ref_len),
-        n_ref, C, Wq, nw, band, static_cast<int*>(rw_f),
-        static_cast<int*>(rl_f), static_cast<int*>(win_w),
-        static_cast<int*>(rel_lo), static_cast<int*>(rel_hi));
+  if (n_cand <= 0) return static_cast<int>(cudaGetLastError());
+  if (C < 1 || C > 32 || n_cand % C) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long B2 = n_cand / C;
+  const long long blocks = (B2 + kRows - 1) / kRows;
+  auto go = [&](auto launch) {
+    launch(blocks, static_cast<cudaStream_t>(stream),
+           static_cast<const int*>(ref_c), static_cast<const int*>(diag_c),
+           static_cast<const int*>(read_w2),
+           static_cast<const int*>(lengths2),
+           static_cast<const int*>(ref_words), total_w,
+           static_cast<const int*>(ref_offset),
+           static_cast<const int*>(ref_len), n_ref, B2, static_cast<int>(C),
+           Wq, nw, band, static_cast<int*>(rw_f), static_cast<int*>(rl_f),
+           static_cast<int*>(win_w), static_cast<int*>(rel_lo),
+           static_cast<int*>(rel_hi));
+  };
+  if (fits(4, Wq, read_w2, rw_f) && fits(2, nw, win_w, win_w)) {
+    go(launch_band_windows<4, 2>);
+  } else {
+    go(launch_band_windows<1, 1>);
   }
   return static_cast<int>(cudaGetLastError());
 }

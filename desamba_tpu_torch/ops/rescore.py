@@ -17,6 +17,9 @@ from .. import kernels
 from .refwin import RefArrays
 
 I32 = torch.int32
+# candidates a read row at most: the kernel gives each of a row's
+# candidates a lane of the row's warp (csrc/rescore.cu)
+BAND_WINDOWS_MAX_C = 32
 
 
 def band_windows_plain(ra: RefArrays, read_w2, lengths2, ref_c, diag_c,
@@ -62,8 +65,9 @@ def _check_refs(ra: RefArrays, dev) -> int:
 def band_windows(ra: RefArrays, read_w2, lengths2, ref_c, diag_c, K: int):
     """The band scorer's inputs for every candidate (band_windows_plain).
     read_w2: int32[B2, W/16] packed read words; lengths2: int32[B2];
-    ref_c, diag_c: int32[B2, C]; K the full band-score width, a multiple of
-    16 and at least 16; every table contiguous and on ref_c's device."""
+    ref_c, diag_c: int32[B2, C] with C <= BAND_WINDOWS_MAX_C; K the full
+    band-score width, a multiple of 16 and at least 16; every table
+    contiguous and on ref_c's device."""
     if ref_c.dim() != 2 or read_w2.dim() != 2:
         raise ValueError("band_windows: ref_c and read_w2 must be 2-D")
     B2, C = ref_c.shape
@@ -76,6 +80,9 @@ def band_windows(ra: RefArrays, read_w2, lengths2, ref_c, diag_c, K: int):
     n_ref = _check_refs(ra, dev)
     if K < 16 or K % 16:
         raise ValueError(f"band_windows: K={K}")
+    if C > BAND_WINDOWS_MAX_C:
+        raise ValueError(f"band_windows: C={C} candidates a row, at most "
+                         f"{BAND_WINDOWS_MAX_C}")
     if not kernels.launch_device(ref_c):
         return band_windows_plain(ra, read_w2, lengths2, ref_c, diag_c, K)
     n = B2 * C

@@ -419,26 +419,25 @@ def test_cli_native_default_equals_jax_cli(golden_index_dir, args):
 
 def test_cli_sends_a_sharded_index_to_the_sharded_engine(tmp_path):
     """A directory with shards.json (the golden references in 2 genome
-    shards, built under pytest's temporary directory) goes to the host
+    shards, built under pytest's temporary directory and removed after
+    the test, torch_shards.built_shards) goes to the host
     ShardedEngine whatever --engine says, as in the JAX CLI: the same SAM
     on stdout, and the same stderr lines."""
-    from desamba_tpu.parallel.shard_index import build_sharded_index
+    from torch_shards import built_shards
 
-    root = str(tmp_path / "shards2")
-    build_sharded_index(os.path.join(GOLD, "ref.fa"), root, n_shards=2,
-                        n_jobs=1)
-    fq = os.path.join(GOLD, "reads.fq")
-    jp = _cli("desamba_tpu.cli", root, fq)
-    assert jp.returncode == 0, jp.stderr
-    assert len(jp.stdout.splitlines()) >= 72
-    for args in ((), ("--engine", "fast", "--device", "cpu"),
-                 ("-f", "SAM_FULL")):
-        tp = _cli("desamba_tpu_torch.cli", *args, root, fq)
-        assert tp.returncode == 0, tp.stderr
-        want = jp.stdout if not args or args[0] != "-f" else _cli(
-            "desamba_tpu.cli", *args, root, fq).stdout
-        assert tp.stdout == want, args
-        assert _stderr_shape(tp.stderr) == _stderr_shape(jp.stderr)
+    with built_shards(tmp_path) as root:
+        fq = os.path.join(GOLD, "reads.fq")
+        jp = _cli("desamba_tpu.cli", root, fq)
+        assert jp.returncode == 0, jp.stderr
+        assert len(jp.stdout.splitlines()) >= 72
+        for args in ((), ("--engine", "fast", "--device", "cpu"),
+                     ("-f", "SAM_FULL")):
+            tp = _cli("desamba_tpu_torch.cli", *args, root, fq)
+            assert tp.returncode == 0, tp.stderr
+            want = jp.stdout if not args or args[0] != "-f" else _cli(
+                "desamba_tpu.cli", *args, root, fq).stdout
+            assert tp.stdout == want, args
+            assert _stderr_shape(tp.stderr) == _stderr_shape(jp.stderr)
 
 
 def test_cli_reports_peak_memory_after_a_failure(tmp_path):

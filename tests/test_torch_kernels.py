@@ -1161,9 +1161,11 @@ def test_locate_kernel_random_batch(cuda, tables, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("Bp,W", [(1, 16), (7, 256), (33, 3072),
-                                  (4096, 2048)])
+                                  (4096, 2048), (1, 48), (3, 48), (5, 8192),
+                                  (4096, 3072)])
 def test_unpack_kernel(cuda, Bp, W):
-    """Random wire rows with padding rows, up to the smoke's chunk."""
+    """Random wire rows with padding rows, up to the smoke's chunks; one
+    word a row, ragged rows (W/16 = 3), Bp = 1 and odd."""
     from desamba_tpu_torch.ops.unpack import unpack, unpack_plain
 
     packed, lens = wire_batch(Bp, W, seed=Bp + W)
@@ -1230,11 +1232,14 @@ def test_stage4_kernels_edge_cases(cuda, tables, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B2,W", [(2, 256), (130, 3072), (8192, 2048)])
+@pytest.mark.parametrize("B2,W", [(2, 256), (130, 3072), (8192, 2048),
+                                  (1, 16), (7, 48), (33, 8192),
+                                  (8192, 3072)])
 def test_band_windows_kernel_random(cuda, tables, B2, W):
-    """Random candidates, up to the smoke chunk's 8,192 rows: refs in
+    """Random candidates, up to the smoke chunks' 8,192 rows: refs in
     [-1, n_ref], diagonals over the reference, past both ends and at
-    random int32 values."""
+    random int32 values; one word a row, ragged rows (W/16 = 3), odd
+    rows."""
     from desamba_tpu_torch.constants import _band
     from desamba_tpu_torch.ops.rescore import band_windows, band_windows_plain
 

@@ -218,14 +218,13 @@ def test_merge_kernel_random(cuda, n_index):
 @pytest.fixture
 def golden_shards(tmp_path):
     """The golden references in 2 genome shards, built in a temporary
-    directory by the JAX package's index builder (numpy only); requested
-    after `cuda`, so it is built only where the test runs."""
-    from desamba_tpu.parallel.shard_index import build_sharded_index
+    directory by the JAX package's index builder (numpy only) and removed
+    after the test (tests/torch_shards.py); requested after `cuda`, so it
+    is built only where the test runs."""
+    from torch_shards import built_shards
 
-    root = str(tmp_path / "shards")
-    build_sharded_index(os.path.join(GOLD, "ref.fa"), root, n_shards=2,
-                        n_jobs=1)
-    return root
+    with built_shards(tmp_path) as root:
+        yield root
 
 
 @pytest.mark.cuda

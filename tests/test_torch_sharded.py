@@ -2,7 +2,8 @@
 against the JAX package's, on the CPU.
 
 The golden references are built into 2 genome shards in a temporary
-directory (never the shared golden-index cache). The JAX
+directory (never the shared golden-index cache), removed after the
+module's tests (tests/torch_shards.py). The JAX
 sharded classifier runs on a ('data', 'index') mesh of 1 x 2 virtual CPU
 devices: with one data shard it sizes stage 2's compaction caps from the
 whole chunk, as the port on one device does, so both compute the same
@@ -19,6 +20,7 @@ import torch
 
 from test_torch_merge import (ALT, NE, REF, SCORE, case_maps,
                               check_merge_coverage, merge_cases)
+from torch_shards import built_shards
 
 GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -37,12 +39,9 @@ def _tuples(res):
 
 @pytest.fixture(scope="module")
 def shard_root(tmp_path_factory):
-    from desamba_tpu.parallel.shard_index import build_sharded_index
-
-    root = str(tmp_path_factory.mktemp("shards"))
-    build_sharded_index(os.path.join(GOLD, "ref.fa"), root, n_shards=2,
-                        n_jobs=1)
-    return root
+    """The golden shards, removed after the module's tests."""
+    with built_shards(tmp_path_factory.mktemp("shards")) as root:
+        yield root
 
 
 @pytest.fixture(scope="module")

@@ -1,31 +1,27 @@
 """Time the stage-1 kernel (K4 + K5), the interval search (K1), the row
-walks (K2), locate (K6), the compaction scan (K3: compact, row_grid)
-and the vote (K7) against an earlier commit's, in turns, on the chunks
-of chip_smoke.py, on one GPU.
+walks (K2), locate (K6), the compaction scan (K3: compact, row_grid),
+the vote (K7), stage 0's unpack (K10) and stage 4's window gather (K9a)
+against an earlier commit's, in turns, on the chunks of chip_smoke.py,
+on one GPU.
 
     mkdir -p build/parent build/tmp
     git archive <commit> desamba_tpu_torch/csrc | tar -x -C build/tmp
     cp build/tmp/desamba_tpu_torch/csrc/* build/parent/
-    python3 tools/kernel_ab.py build/parent [--earlier vote]
+    python3 tools/kernel_ab.py build/parent
 
 Builds the parent's sources of NAMES with kernels.NVCC_FLAGS into that
-directory and puts their C entry points under the port's own wrappers
-(parent_kernels). An entry point loads with the argtypes of
-kernels.KERNELS, save one that `--earlier NAME` names: its parent has
-the earlier C interface of PARENT_ARGTYPES, and it runs under an
-adapter. The only such one is the vote of 670d0e2 and before (fill,
-scatter, a block a row): it takes an int32 [4, B2, A] scratch of dense
-rows in place of the slot map's words and call number, and
-vote_adapter makes one a call with torch.empty, as its wrapper did
-(launching nothing). A parent's resume of K1 or K2 wrote into a copy of
-the carry that its wrapper made; the current wrappers update the carry
-in place (chip_smoke.IN_PLACE), so parent_kernels hands them that copy
+directory and puts their C entry points, loaded with the argtypes of
+kernels.KERNELS, under the port's own wrappers (parent_kernels). A
+parent's resume of K1 or K2 wrote into a copy of the carry that its
+wrapper made; the current wrappers update the carry in place
+(chip_smoke.IN_PLACE), so parent_kernels hands them that copy
 (copy=True). Makes
 the smoke's bench data (chip_smoke.make_data, cached under
 build/bench_cache) and captures the kernels' calls on the first chunk of
-each width bucket (chip_smoke.kernel_inputs: stage 1's call, K1's and
-K2's burst, mid and tail resume, locate's call, compact's first call and
-first through a source list, row_grid's call, the vote's call). Both
+each width bucket (chip_smoke.kernel_inputs: unpack's call, stage 1's
+call, K1's and K2's burst, mid and tail resume, locate's call, compact's
+first call and first through a source list, row_grid's call, the vote's
+call, band_windows' call). Both
 sides' outputs must equal the plain versions', or the run fails. Then,
 with L2 evicted before each call (chip_smoke.cuda_ms, median of 20):
 each call parent, current, current, parent (the resumes' parent also
@@ -35,7 +31,7 @@ launches each alone, kernel_rows_ms), and the host's time a
 call (host_us: the wrapper's enqueue, median of 200, in the same
 turns); each side's hand kernels in one profiled pure-device
 classify_batch (path: device ms and launches of each CUDA function of
-K1 and K7); the parent's K2 sweep over
+PATH_NAMES: K1, K7, K10 and K9a); the parent's K2 sweep over
 chip_smoke.WALK_SWEEP_CAPS beside the bare pointer chase
 (chip_smoke.walk_sweep) on the first chunk's burst carry; and
 pure-device classify_batch reads/s of all reads in N_PAIRS pairs, the
@@ -43,7 +39,8 @@ parent first in every other pair, three calls a side, whose results must
 be equal, then the same pairs with the parent against itself, the
 current against itself, and the current kernels under parent_kernels
 against the current as they stand (controls: they read the pairing's
-and parent_kernels' own bias). Prints the card line and one JSON line, `kernel_ab {...}`.
+and parent_kernels' own bias). Prints the card line and one JSON line,
+`kernel_ab {...}`.
 """
 from __future__ import annotations
 
@@ -60,21 +57,15 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-NAMES = ("stage1", "interval_search", "row_walks", "locate", "compact",
-         "row_grid", "vote")
+NAMES = ("unpack", "stage1", "interval_search", "row_walks", "locate",
+         "compact", "row_grid", "vote", "band_windows")
 # the calls of each chunk timed in turns (chip_smoke.kernel_inputs' keys)
-KEYS = ("stage1", *cs.K1_CALLS, "row_walks", "row_walks[sel]",
+KEYS = ("unpack", "stage1", *cs.K1_CALLS, "row_walks", "row_walks[sel]",
         "row_walks[sel]#2", "locate", "compact", "compact[src]",
-        "row_grid", "vote")
+        "row_grid", "vote", "band_windows")
 # the hand kernels whose CUDA functions the path profile reports
-PATH_NAMES = ("interval_search", "vote")
+PATH_NAMES = ("interval_search", "vote", "unpack", "band_windows")
 N_PAIRS = 10  # pairs of (parent, current) pure-device classify_batch turns
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the earlier C interface that `--earlier vote` names: the three-launch
-# vote's (..., B2, nwR, scratch, out, stream)
-PARENT_ARGTYPES = {
-    "vote": [_P, _P, _P, _P, _P, _P, _LL, _I, _P, _LL, _I, _P, _P, _P],
-}
 
 
 def function_name(key: str) -> str:
@@ -107,10 +98,9 @@ def kernel_rows_ms(fn, match: str, n: int = 20) -> dict:
             for e in cs.device_rows(calls) if match in e.key}
 
 
-def build_parent(pdir: str, earlier: set) -> tuple[dict, dict]:
+def build_parent(pdir: str) -> tuple[dict, dict]:
     """({kernel: ctypes function}, chip_smoke.ptxas_report) of the
-    parent's sources in pdir; the kernels that `earlier` names load with
-    PARENT_ARGTYPES under their adapter."""
+    parent's sources in pdir."""
     from desamba_tpu_torch import kernels
 
     nvcc = kernels._nvcc()
@@ -131,27 +121,10 @@ def build_parent(pdir: str, earlier: set) -> tuple[dict, dict]:
         src, entry, argtypes = kernels.KERNELS[name]
         logs[name] = dict(log=libs[src][1])
         fn = getattr(ctypes.CDLL(libs[src][0]), entry)
-        fn.argtypes = PARENT_ARGTYPES[name] if name in earlier else argtypes
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[name] = vote_adapter(fn) if name in earlier else fn
+        fns[name] = fn
     return fns, cs.ptxas_report(logs)
-
-
-def vote_adapter(fn):
-    """The parent's three-launch vote entry point fn under the current C
-    interface: the slot map's words and the call number become an int32
-    [4, B2, A] scratch of the dense rows, made a call with torch.empty as
-    the parent's wrapper made it."""
-    import torch
-
-    def call(*a):
-        # (ref, ..., sel, n, P, lengths2, B2, nwR, words, call, out,
-        # stream)
-        P, B2, nwR = a[7], a[9], a[10]
-        scratch = torch.empty((4, B2, nwR * P), dtype=torch.int32,
-                              device="cuda")
-        return fn(*a[:11], ctypes.c_void_p(scratch.data_ptr()), *a[13:])
-    return call
 
 
 @contextlib.contextmanager
@@ -192,10 +165,8 @@ def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    earlier = {args[i + 1] for i in range(len(args) - 1)
-               if args[i] == "--earlier"}
-    if (not args or args[0].startswith("-") or not torch.cuda.is_available()
-            or not earlier <= set(PARENT_ARGTYPES)):
+    if len(args) != 1 or args[0].startswith("-") or not (
+            torch.cuda.is_available()):
         print(__doc__, file=sys.stderr)
         return 2
     from desamba_tpu_torch import kernels
@@ -208,7 +179,7 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     info = kernels.build_all(extra=("measure.cu",))
-    fns, parent_ptxas = build_parent(args[0], earlier)
+    fns, parent_ptxas = build_parent(args[0])
     ptxas = cs.ptxas_report(info)
     _, fq, idx_dir = cs.make_data()
     cl = FastClassifier(load_index(idx_dir), device="cuda")
