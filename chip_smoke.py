@@ -18,8 +18,8 @@ that the reference wrote.
 Phases (any failure raises, and the script exits nonzero):
   1. the card (nvidia-smi name and power limit) and the software; nvcc
      builds the kernels and csrc/measure.cu's floors (timed, in
-     parallel); stage 1's and K2's registers, spills and stack from
-     -Xptxas -v (the `ptxas` line)
+     parallel); stage 1's, K2's, combine's and the merge's registers,
+     spills and stack from -Xptxas -v (the `ptxas` line)
   2. the bench data and its genome shards (child processes, the two
      builds at once), the port's index loader and FastClassifier on
      "cuda"; the stages run once on the first full
@@ -152,7 +152,11 @@ Phases (any failure raises, and the script exits nonzero):
 After phase 7 it prints the `ranking` line: RANKED (stage 0's and stage
 4's kernels outside the band scorer, and the merge) by launches a batch x
 (cold ms - bound ms), the weight by which the kernel redesigns are
-chosen, each with the share of its bound it reaches.
+chosen, each with the share of its bound it reaches; combine and the
+merge also with their floors at their grid (kernel_floors, of
+csrc/measure.cu: launch_floor_ms, an empty kernel; one_round_ms, one
+round of independent loads of the call's input bytes and one of stores
+of its output bytes), taken on phase 2's first chunk and phase 7's.
 Prints a `kernels` JSON line (the fast path's eleven kernels, the
 validation engine's two, the sharded path's merge, then the data-parallel
 path's taxon weights; K1's row also carries its validation-path call, the
@@ -1102,6 +1106,71 @@ def write_floor_ms(out) -> float:
     return cuda_ms(buf.zero_, 20, cold=True)
 
 
+def floor_grid(name: str, args, out) -> tuple[list, int, int]:
+    """(the kernel's input tensors, its blocks, its threads a block: one
+    thread a read or read column) of a combine or shard_merge call."""
+    from desamba_tpu_torch.ops.merge import MERGE_THREADS
+    from desamba_tpu_torch.ops.rescore import COMBINE_READS
+
+    if name == "combine":
+        ra, score, q_st, q_ed, ref_c, diag_c = args
+        ins, items, threads = ([score, q_st, q_ed, ref_c, diag_c,
+                                ra.ref_offset], out.shape[1], COMBINE_READS)
+    else:
+        res, maps, map_off, _ = args
+        ins, items, threads = [res, maps, map_off], res.shape[2], MERGE_THREADS
+    return ins, -(-items // threads), threads
+
+
+def kernel_floors(lib: str, name: str, args, out) -> dict:
+    """The floors of one call of a short kernel at its grid, cold
+    (cuda_ms(cold=True), median of 20): launch_floor_ms, an empty kernel
+    (dsb_empty_launch), and one_round_ms, one round of independent
+    16-byte loads of its input bytes (copied end to end into one buffer
+    here, each input from a 16-byte boundary) and one round of stores of
+    as many words as its output holds (dsb_one_round), both of
+    csrc/measure.cu (library lib)."""
+    import ctypes
+
+    import torch
+
+    from desamba_tpu_torch import kernels
+
+    ins, blocks, threads = floor_grid(name, args, out)
+    words = [-(-nbytes(t) // 16) * 4 for t in ins]
+    buf = torch.zeros(sum(words), dtype=torch.int32, device="cuda")
+    at = 0
+    for t, w in zip(ins, words):
+        flat = t.reshape(-1).view(torch.int32)
+        buf[at:at + flat.numel()] = flat
+        at += w
+    sink = torch.empty(nbytes(out) // 4, dtype=torch.int32, device="cuda")
+    lib_ = ctypes.CDLL(lib)
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    empty, one = lib_.dsb_empty_launch, lib_.dsb_one_round
+    empty.argtypes = [LL, ctypes.c_int, P]
+    one.argtypes = [P, LL, P, LL, LL, ctypes.c_int, P]
+    empty.restype = one.restype = ctypes.c_int
+    st = kernels.stream(sink.device)
+
+    def run_empty():
+        _rc("dsb_empty_launch", empty(blocks, threads, st))
+
+    def run_one():
+        _rc("dsb_one_round", one(kernels.ptr(buf), buf.numel() // 4,
+                                 kernels.ptr(sink), sink.numel(), blocks,
+                                 threads, st))
+
+    r = dict(launch_floor_ms=cuda_ms(run_empty, 20, cold=True),
+             one_round_ms=cuda_ms(run_one, 20, cold=True),
+             floor_grid=[blocks, threads], input_bytes=nbytes(*ins),
+             output_bytes=nbytes(out))
+    log(f"smoke: {name} floors at {blocks} x {threads}: launch "
+        f"{r['launch_floor_ms']:.4f} ms, one round {r['one_round_ms']:.4f} "
+        f"ms")
+    return r
+
+
 def check_kernels(cap: dict) -> dict:
     """Each kernel against its plain version on each of its captured
     calls, keyed as kernel_inputs keys them."""
@@ -1815,6 +1884,9 @@ def ranking(first: dict, more: dict, on_path: dict, launches: dict,
                      for W, c in more.items() if k in c}
         out.append(dict(name=k, launches=n, ms=r["ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        **{f: r[f] for f in ("launch_floor_ms",
+                                             "one_round_ms", "floor_grid")
+                           if f in r},
                         path_ms=path, share_of_bound=r["bound_ms"] / r["ms"],
                         weight_ms=n * (r["ms"] - r["bound_ms"]),
                         other_chunks=other))
@@ -2026,6 +2098,28 @@ def spread(xs) -> dict:
                 runs=list(xs))
 
 
+def record_merges(scl, reads) -> list:
+    """The merge's arguments (stacked shard results, maps, map_off, nref)
+    of each chunk of one classify_batch of the sharded classifier scl."""
+    from desamba_tpu_torch.engine.sharded_fast import build_sharded_full
+    from desamba_tpu_torch.ops.merge import shard_merge
+
+    cap, ek = [], scl.ek
+
+    def rec(*a):
+        cap.append(a)
+        return shard_merge(*a)
+
+    path_full = scl._full
+    scl._full = build_sharded_full(ek.lek, ek.single_base_max, ek.mask_bits,
+                                   20, ek.n_words0, merge=rec)
+    try:
+        scl.classify_batch(reads, block=BLOCK)
+    finally:
+        scl._full = path_full
+    return cap
+
+
 def sharded_phase(cl, reads, shard_index, card, res, res_dev, native_tids,
                   measure: str) -> dict:
     """Phase 7: the genome-sharded classifier (load_sharded_fast) on the
@@ -2046,7 +2140,6 @@ def sharded_phase(cl, reads, shard_index, card, res, res_dev, native_tids,
     from desamba_tpu_torch import kernels
     from desamba_tpu_torch.engine.fast_engine import KERNEL_OPS, build_full
     from desamba_tpu_torch.engine.sharded_fast import (ShardedFastClassifier,
-                                                       build_sharded_full,
                                                        load_sharded_fast)
     from desamba_tpu_torch.ops.merge import shard_merge, shard_merge_plain
 
@@ -2070,17 +2163,7 @@ def sharded_phase(cl, reads, shard_index, card, res, res_dev, native_tids,
 
     # the merge's inputs, chunk by chunk, from a warm pass (with the
     # replay, so that the host ShardedEngine is built before the rates)
-    cap = []
-
-    def rec(*a):
-        cap.append(a)
-        return shard_merge(*a)
-
-    path_full = scl._full
-    scl._full = build_sharded_full(ek.lek, ek.single_base_max, ek.mask_bits,
-                                   20, ek.n_words0, merge=rec)
-    scl.classify_batch(reads, block=BLOCK)
-    scl._full = path_full
+    cap = record_merges(scl, reads)
     scl.exact_fallback = False
     err = 0
     for a in cap:
@@ -2099,7 +2182,8 @@ def sharded_phase(cl, reads, shard_index, card, res, res_dev, native_tids,
                  plain_ms=cuda_ms(lambda: shard_merge_plain(*a0), 20,
                                   cold=True),
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                 shape=shape)
+                 shape=shape, **kernel_floors(measure, "shard_merge", a0,
+                                              shard_merge_plain(*a0)))
     log(f"smoke: shard_merge [{shape}] equal on {len(cap)} chunks; kernel "
         f"{merge['ms']:.4f} ms, plain {merge['plain_ms']:.4f} ms, bound "
         f"{bound_ms:.6f} ms ({bound_by})")
@@ -2588,7 +2672,8 @@ def main() -> int:
         log(f"smoke: {name}: {' | '.join(regs) or d['log'][:200]}")
     ptxas = ptxas_report(info)
     print("ptxas " + json.dumps(
-        {k: ptxas[k] for k in ("stage1", "row_walks")}), flush=True)
+        {k: ptxas[k] for k in ("stage1", "row_walks", "combine",
+                               "shard_merge")}), flush=True)
     sass = band_sass(info["band_score_packed"]["path"])
     print("band_score_packed SASS " + json.dumps(sass), flush=True)
     from desamba_tpu_torch.engine.native import ensure_built
@@ -2620,6 +2705,9 @@ def main() -> int:
     cap = kernel_inputs(cl, *chunks[min(chunks)][:2])
     checks = check_kernels(cap)
     measure = info["measure.cu"]["path"]
+    c_args = cap["combine"][0]
+    checks["combine"].update(kernel_floors(
+        measure, "combine", c_args, PLAIN_OPS["combine"](*c_args)))
     splits = {f"W={min(chunks)}": locate_split(measure, cap["locate"][0],
                                                f"W={min(chunks)}")}
     sweep = walk_sweep(measure, cap["row_walks"][0])

@@ -24,6 +24,15 @@
 // dsb_locate_walk, the walk on the lanes' own rows (each lane's final row,
 // steps and ok out); and dsb_locate_tail, the search and the expansion
 // from those (tail_guess, as the path's kernel runs it).
+//
+// The floors of a short kernel (K9b combine, K11 shard_merge), at the
+// path kernel's grid: dsb_empty_launch, a launch of an empty kernel; and
+// dsb_one_round, one round of independent 16-byte loads of the call's
+// input bytes, laid end to end in one buffer by the caller (each thread
+// all its loads of a batch of kRoundBatch before it uses one), and one
+// round of 4-byte stores of as many words as the call writes. The least
+// time a kernel of that grid, reading those bytes once with no dependent
+// load, can take.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -33,6 +42,29 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRoundBatch = 8;  // 16-byte loads a thread issues before using one
+
+__global__ void empty_kernel() {}
+
+__global__ void one_round_kernel(const uint4* __restrict__ in, long long n16,
+                                 unsigned* __restrict__ out, long long n_out) {
+  const long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  const long long G = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned acc = 0;
+  for (long long base = 0; base < n16; base += kRoundBatch * G) {
+    uint4 v[kRoundBatch];
+#pragma unroll
+    for (int k = 0; k < kRoundBatch; ++k) {
+      const long long p = base + k * G + g;
+      v[k] = p < n16 ? __ldg(in + p) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < kRoundBatch; ++k)
+      acc ^= v[k].x ^ v[k].y ^ v[k].z ^ v[k].w;
+  }
+  for (long long i = g; i < n_out; i += G) out[i] = acc;
+}
 
 __global__ void bloom_gather_kernel(const unsigned* __restrict__ w01,
                                     const unsigned* __restrict__ a1,
@@ -237,5 +269,26 @@ extern "C" int dsb_occ_chase(const void* occ32, long long n_blk,
         static_cast<const int*>(sel), m, static_cast<const int*>(steps),
         static_cast<int*>(out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dsb_empty_launch(long long blocks, int threads,
+                                void* stream) {
+  if (blocks > 0)
+    empty_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in: n16 16-byte pieces (the call's inputs laid end to end); out: n_out
+// words, written
+extern "C" int dsb_one_round(const void* in, long long n16, void* out,
+                             long long n_out, long long blocks, int threads,
+                             void* stream) {
+  if (blocks > 0)
+    one_round_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint4*>(in), n16, static_cast<unsigned*>(out),
+        n_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,10 +40,26 @@
 // 8-byte window pieces), which every width of the path takes (W/16 a
 // multiple of 4, nw = W/16 + K/16 + 1 even: 138 at W = 2048), and
 // VR = VW = 1 for any other width or alignment.
-// combine reads 5 int32 a candidate and writes 6 a read, a thread a
-// read with its 2C candidates in registers across its passes.
+// combine reads 5 int32 a candidate and writes 6 a read: a few hundred KB
+// a chunk, ~0.2 us of bytes, so its time is its launch and its rounds of
+// dependent loads. The earlier design (a thread a read, 128 a block)
+// looped over the candidates with a runtime count, loading each
+// candidate's ref before its score, then the chosen candidate's fields,
+// then ref_offset at the chosen ref: five or more rounds of DRAM latency
+// one after another. Here a block of kCombineReads reads (one warp, 128
+// blocks at B = 4096) stages the block's spans of the five candidate
+// arrays, both strands, and, up to kRefStageMax refs, the whole
+// ref_offset table into shared memory with asynchronous copies (16-byte
+// where the spans align, which they do at the path's shapes), all in
+// flight at once: one round of loads. The pick then reads shared memory
+// only (above kRefStageMax refs, one global load of ref_offset at the
+// chosen ref). Templated on C: the path's 3, loops unrolled, and a
+// generic variant for any C up to kCombineMaxC.
+#include <climits>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "wrap.cuh"
 
@@ -55,6 +71,9 @@ using dsb::sub_wrap;
 constexpr int kRows = 8;     // read rows (warps) a block of band_windows
 constexpr int kRowRegs = 4;  // row pieces a lane holds at once
 constexpr int kWinBatch = 8; // window pieces a lane loads before storing
+constexpr int kCombineReads = 32;  // reads (threads) a block of combine
+constexpr int kCombineMaxC = 32;   // candidates a row of combine at most
+constexpr int kRefStageMax = 1024; // ref_offset entries staged at most
 
 __device__ __forceinline__ long long clamp_index(long long i, long long n) {
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
@@ -206,59 +225,117 @@ bool fits(int v, long long n, const void* a, const void* b) {
          reinterpret_cast<uintptr_t>(b) % (4 * v) == 0;
 }
 
-__global__ void combine_kernel(
+// Copies n words from global src to shared dst without holding them in
+// registers (cp.async): 16-byte copies where kVec (src and dst 16-byte
+// aligned), 4-byte ones for the rest; all of a thread's copies are in
+// flight at once. The caller commits and waits.
+template <bool kVec>
+__device__ __forceinline__ void stage_words(int* dst, const int* src, int n) {
+  int i = threadIdx.x;
+  if constexpr (kVec) {
+    const int n4 = n >> 2;
+    for (int p = threadIdx.x; p < n4; p += blockDim.x)
+      __pipeline_memcpy_async(dst + 4 * p, src + 4 * p, 16);
+    i += 4 * n4;
+  }
+  for (; i < n; i += blockDim.x) __pipeline_memcpy_async(dst + i, src + i, 4);
+}
+
+// One thread a read b, kCombineReads reads a block. Round 1 stages the
+// block's candidates (for each of score, q_st, q_ed, ref_c, diag_c the
+// forward span [b0*C, (b0+nb)*C) and the reverse-complement span
+// [(B+b0)*C, (B+b0+nb)*C), each in its own slot of shared memory) and,
+// where kStageRefs, the whole ref_offset table; after it every read of
+// the pick comes from shared memory, so no load depends on another. CT:
+// the candidates a row, fixed (the loops unroll and the values stay in
+// registers), or 0 for any C (read from shared memory as needed).
+template <int CT, bool kVec, bool kStageRefs>
+__global__ void __launch_bounds__(kCombineReads) combine_kernel(
     const int* __restrict__ score, const int* __restrict__ q_st,
     const int* __restrict__ q_ed, const int* __restrict__ ref_c,
     const int* __restrict__ diag_c, const int* __restrict__ ref_offset,
-    long long n_ref, long long B, int C, int* __restrict__ out) {
-  const long long b = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (b >= B) return;
+    int n_ref, long long B, int c_rt, int* __restrict__ out) {
+  extern __shared__ __align__(16) int sm[];
+  const int C = CT > 0 ? CT : c_rt;
+  const int T = kCombineReads;
+  const long long b0 = blockIdx.x * static_cast<long long>(T);
+  const int nb = static_cast<int>(B - b0 < T ? B - b0 : T);
+  const int span = T * C;  // a slot: one field of one strand
+  const int* fields[5] = {score, q_st, q_ed, ref_c, diag_c};
+#pragma unroll
+  for (int f = 0; f < 5; ++f) {
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      stage_words<kVec>(sm + (2 * f + st) * span,
+                        fields[f] + (st * B + b0) * C, nb * C);
+    }
+  }
+  int* refs = sm + 10 * span;
+  if constexpr (kStageRefs) stage_words<false>(refs, ref_offset, n_ref);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= nb) return;
+  const long long b = b0 + t;
   const int n = 2 * C;
   // candidate k < C is row b's k-th, k >= C row B + b's (k - C)-th
-  auto at = [&](int k) -> long long {
-    return k < C ? b * C + k : (B + b) * C + (k - C);
+  auto at = [&](int f, int k) -> int {
+    return k < C ? sm[2 * f * span + t * C + k]
+                 : sm[(2 * f + 1) * span + t * C + (k - C)];
   };
-  auto score4 = [&](int k) -> int {
-    const long long f = at(k);
-    return ref_c[f] >= 0 ? score[f] : -1;
-  };
+  auto ref_at = [&](int k) { return at(3, k); };
+  auto score4 = [&](int k) { return ref_at(k) >= 0 ? at(0, k) : -1; };
   int s_max = score4(0);
+#pragma unroll
   for (int k = 1; k < n; ++k) s_max = max(s_max, score4(k));
   // the tie order: odd (s_max & 1, so also s_max = -1) the highest tied
   // ref, even the lowest; the first candidate holding it, else 0
   int r_hi = -1;
-  long long r_lo = n_ref + 1;
+  long long r_lo = static_cast<long long>(n_ref) + 1;
+#pragma unroll
   for (int k = 0; k < n; ++k) {
     if (score4(k) == s_max) {
-      const int r = ref_c[at(k)];
+      const int r = ref_at(k);
       r_hi = max(r_hi, r);
       r_lo = min(r_lo, static_cast<long long>(r));
     }
   }
   const long long r_best = (s_max & 1) ? r_hi : r_lo;
-  int cb = 0;
+  int cb = -1;
+#pragma unroll
   for (int k = 0; k < n; ++k) {
-    if (score4(k) == s_max && ref_c[at(k)] == r_best) {
-      cb = k;
-      break;
-    }
+    if (cb < 0 && score4(k) == s_max && ref_at(k) == r_best) cb = k;
   }
-  const long long fb = at(cb);
-  const int ref_b = s_max > 0 ? ref_c[fb] : -1;
-  const int pos = sub_wrap(add_wrap(diag_c[fb], q_st[fb]),
-                           __ldg(ref_offset + clamp_index(ref_b, n_ref)));
+  if (cb < 0) cb = 0;
+  const int ref_b = s_max > 0 ? ref_at(cb) : -1;
+  const int qs = at(1, cb);
+  const long long rc = clamp_index(ref_b, n_ref);
+  const int off = kStageRefs ? refs[rc] : __ldg(ref_offset + rc);
+  const int pos = sub_wrap(add_wrap(at(4, cb), qs), off);
   int alt = -1;
+#pragma unroll
   for (int k = 0; k < n; ++k) {
-    const int r = ref_c[at(k)];
+    const int r = ref_at(k);
     if (r != ref_b && r >= 0) alt = max(alt, score4(k));
   }
   out[b] = max(s_max, 0);
   out[B + b] = ref_b;
   out[2 * B + b] = cb >= C ? 0 : 1;  // 1 = forward
-  out[3 * B + b] = max(sub_wrap(q_ed[fb], q_st[fb]), 0);
+  out[3 * B + b] = max(sub_wrap(at(2, cb), qs), 0);
   out[4 * B + b] = ref_b >= 0 ? pos : -1;
   out[5 * B + b] = max(alt, 0);
+}
+
+template <int CT, bool kVec, bool kStageRefs>
+void launch_combine(long long blocks, size_t smem, cudaStream_t stream,
+                    const int* score, const int* q_st, const int* q_ed,
+                    const int* ref_c, const int* diag_c,
+                    const int* ref_offset, int n_ref, long long B, int C,
+                    int* out) {
+  combine_kernel<CT, kVec, kStageRefs>
+      <<<static_cast<unsigned>(blocks), kCombineReads, smem, stream>>>(
+          score, q_st, q_ed, ref_c, diag_c, ref_offset, n_ref, B, C, out);
 }
 
 }  // namespace
@@ -296,20 +373,43 @@ extern "C" int dsb_band_windows(
   return static_cast<int>(cudaGetLastError());
 }
 
+// score, q_st, q_ed: int32[2B*C]; ref_c, diag_c: int32[2B, C]; ref_offset:
+// int32[n_ref]; out: int32[6, B]. 1 <= C <= kCombineMaxC, n_ref >= 1.
 extern "C" int dsb_combine(const void* score, const void* q_st,
                            const void* q_ed, const void* ref_c,
                            const void* diag_c, const void* ref_offset,
                            long long n_ref, long long B, int C, void* out,
                            void* stream) {
-  if (B > 0) {
-    const int threads = 128;
-    const long long blocks = (B + threads - 1) / threads;
-    combine_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(score), static_cast<const int*>(q_st),
-        static_cast<const int*>(q_ed), static_cast<const int*>(ref_c),
-        static_cast<const int*>(diag_c), static_cast<const int*>(ref_offset),
-        n_ref, B, C, static_cast<int*>(out));
-  }
+  if (C < 1 || C > kCombineMaxC || n_ref < 1 || n_ref > INT_MAX || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks = (B + kCombineReads - 1) / kCombineReads;
+  const bool stage_refs = n_ref <= kRefStageMax;
+  const size_t smem = sizeof(int) * (10 * kCombineReads * C +
+                                     (stage_refs ? n_ref : 0));
+  // 16-byte copies: each strand's span starts at a multiple of 4 words
+  // (kCombineReads * C and B * C are) on 16-byte aligned arrays
+  const void* ptrs[] = {score, q_st, q_ed, ref_c, diag_c};
+  bool vec = (B * C) % 4 == 0;
+  for (const void* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  auto go = [&](auto launch) {
+    launch(blocks, smem, static_cast<cudaStream_t>(stream),
+           static_cast<const int*>(score), static_cast<const int*>(q_st),
+           static_cast<const int*>(q_ed), static_cast<const int*>(ref_c),
+           static_cast<const int*>(diag_c),
+           static_cast<const int*>(ref_offset), static_cast<int>(n_ref), B,
+           C, static_cast<int*>(out));
+  };
+  // the path's C (3) unrolled, any other C generic
+  auto variant = [&](auto ct) {
+    constexpr int CT = decltype(ct)::value;
+    if (vec && stage_refs) go(launch_combine<CT, true, true>);
+    else if (vec) go(launch_combine<CT, true, false>);
+    else if (stage_refs) go(launch_combine<CT, false, true>);
+    else go(launch_combine<CT, false, false>);
+  };
+  if (C == 3) variant(std::integral_constant<int, 3>{});
+  else variant(std::integral_constant<int, 0>{});
   return static_cast<int>(cudaGetLastError());
 }

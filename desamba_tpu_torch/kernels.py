@@ -69,7 +69,8 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _P, _P]),
     # the genome-sharded classifier's (engine/sharded_fast.py)
     "shard_merge": (
-        "merge.cu", "dsb_shard_merge", [_P, _I, _LL, _P, _P, _I, _P, _P]),
+        "merge.cu", "dsb_shard_merge",
+        [_P, _I, _LL, _P, _LL, _P, _I, _P, _P]),
     # the data-parallel classifier's abundance weights
     # (parallel/collectives.py)
     "taxon_weights": (

@@ -19,6 +19,14 @@ from .. import kernels
 
 I32 = torch.int32
 N_ROWS = 7  # stage 4's PACK_KEYS, then the strand-folded n_exist
+# the kernel's (csrc/merge.cu): read columns a block (kMergeThreads), the
+# n_index it unrolls (the rest run its generic variant), maps words
+# (kMapStageMax) and shards (kShardStageMax) whose tables it copies into
+# shared memory at most; past those it reads them from device memory
+MERGE_THREADS = 32
+MERGE_UNROLLED = (1, 2, 4)
+MERGE_MAPS_STAGED = 4096
+MERGE_SHARDS_STAGED = 64
 
 
 def ref_maps(ids_per_shard, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -71,7 +79,7 @@ def shard_merge(res, maps, map_off, nref: int) -> torch.Tensor:
     with global refs (shard_merge_plain's function). res: int32[n_index,
     7, Bp] with n_index >= 1; maps: int32[M]; map_off: int64[n_index + 1],
     non-decreasing from 0 to M, each shard's map non-empty (ref_maps
-    makes them); 0 <= nref < 2^31 - 1."""
+    makes them; map_off[n_index] == M); 0 <= nref < 2^31 - 1."""
     if res.dim() != 3 or res.shape[1] != N_ROWS or res.shape[0] < 1:
         raise ValueError(f"shard_merge: res shape {tuple(res.shape)}, "
                          f"expected [n_index >= 1, {N_ROWS}, Bp]")
@@ -79,6 +87,8 @@ def shard_merge(res, maps, map_off, nref: int) -> torch.Tensor:
     dev = res.device
     kernels.check("res", res, I32, (n, N_ROWS, Bp), dev)
     kernels.check("maps", maps, I32, (maps.numel(),), dev)
+    if not 1 <= maps.numel() < 2**31:
+        raise ValueError(f"shard_merge: {maps.numel()} map entries")
     kernels.check("map_off", map_off, torch.int64, (n + 1,), dev)
     if not 0 <= nref < 2**31 - 1:
         raise ValueError(f"shard_merge: nref={nref} out of range")
@@ -88,7 +98,8 @@ def shard_merge(res, maps, map_off, nref: int) -> torch.Tensor:
     if Bp:
         with torch.cuda.device(dev):
             kernels.call("shard_merge", kernels.ptr(res), n, Bp,
-                         kernels.ptr(maps), kernels.ptr(map_off), nref,
-                         kernels.ptr(out), kernels.stream(dev))
+                         kernels.ptr(maps), maps.numel(),
+                         kernels.ptr(map_off), nref, kernels.ptr(out),
+                         kernels.stream(dev))
         kernels.launches["shard_merge"] += 1
     return out

@@ -20,6 +20,13 @@ I32 = torch.int32
 # candidates a read row at most: the kernel gives each of a row's
 # candidates a lane of the row's warp (csrc/rescore.cu)
 BAND_WINDOWS_MAX_C = 32
+# the combine kernel's (csrc/rescore.cu): reads a block (kCombineReads),
+# candidates a row at most (kCombineMaxC: a block's staged candidates fit
+# 48 KB of shared memory) and ref_offset entries staged at most
+# (kRefStageMax; above it the kernel gathers ref_offset at the pick)
+COMBINE_READS = 32
+COMBINE_MAX_C = 32
+COMBINE_REFS_STAGED = 1024
 
 
 def band_windows_plain(ra: RefArrays, read_w2, lengths2, ref_c, diag_c,
@@ -152,12 +159,13 @@ def combine_plain(ra: RefArrays, score, q_st, q_ed, ref_c, diag_c):
 def combine(ra: RefArrays, score, q_st, q_ed, ref_c, diag_c):
     """combine_plain's int32[6, B]. score, q_st, q_ed: int32[B2*C], the
     band scorer's outputs for candidate b*C + c; ref_c, diag_c: int32[B2,
-    C] with B2 even and C >= 1."""
+    C] with B2 even and 1 <= C <= COMBINE_MAX_C."""
     if ref_c.dim() != 2:
         raise ValueError("combine: ref_c must be 2-D")
     B2, C = ref_c.shape
-    if B2 % 2 or C < 1:
-        raise ValueError(f"combine: B2={B2}, C={C}")
+    if B2 % 2 or not 1 <= C <= COMBINE_MAX_C:
+        raise ValueError(f"combine: B2={B2}, C={C} (1 <= C <= "
+                         f"{COMBINE_MAX_C})")
     dev = ref_c.device
     kernels.check("ref_c", ref_c, I32, (B2, C), dev)
     kernels.check("diag_c", diag_c, I32, (B2, C), dev)

@@ -3,7 +3,11 @@ CPU: every stage output, the [7, Bp] result pack, FastResult tuples and
 stats on the golden reads, and the port's CLI. The port's classifier
 stands alone and reads the index with its own loader; the JAX classifier
 takes the JAX package's OracleIndex of the same directory. All values are
-integers, so the tolerance is exact equality everywhere."""
+integers, so the tolerance is exact equality everywhere.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import os
 import re
 import subprocess
@@ -14,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")

@@ -1,7 +1,11 @@
 """The port's own host side against the JAX package's, on the CPU and the
 golden index and reads: the copied constants, the index loader (against
 OracleIndex and from_oracle_index), the FASTA/FASTQ reader and the native
-engine's binding. Everything is compared for exact equality."""
+engine's binding. Everything is compared for exact equality.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import dataclasses
 import gzip
 import os
@@ -9,6 +13,7 @@ import shutil
 
 import numpy as np
 import pytest
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")

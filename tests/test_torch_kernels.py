@@ -7,6 +7,9 @@ kernels at first use); elsewhere they skip with a reason. On the card:
 
 The unmarked tests check, on any host, what surrounds the kernels: the
 CPU route of each wrapper, the build naming and the sources.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import os
 
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from desamba_tpu_torch import kernels
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 
 @pytest.fixture

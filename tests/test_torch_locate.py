@@ -12,12 +12,16 @@ chip_smoke.py reuse locate_model and locate_route_cases. On the card:
     python -m pytest tests/test_torch_locate.py -m cuda -q
 
 Change the kernel and the model together.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import numpy as np
 import pytest
 import torch
 
 from test_torch_kernels import _to, locate_cases
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 LF_SHIFT = 29
 # routes of a lane's search (locate.cuh tail_guess): the guess holds; p

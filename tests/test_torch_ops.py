@@ -1,13 +1,18 @@
 """The torch port's ops against the JAX package's, on the CPU: the same
 inputs (made with numpy from a seed, or the golden index and reads) go
 through both; the port runs its plain versions. Everything is integer,
-so every comparison is exact equality."""
+so every comparison is exact equality.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 

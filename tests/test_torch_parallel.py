@@ -10,6 +10,9 @@ make_mesh(n_data=n) of the virtual CPU devices: its shard_map gives each
 shard its own rows, and stage 2's compaction caps scale with those rows,
 as the port's ranks do, so both compute the same integer function and
 the tolerance is exact equality everywhere.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import os
 import subprocess
@@ -22,6 +25,7 @@ import torch
 
 import torch_dist_worker as worker
 from test_torch_taxon import expected, taxon_cases
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BURSTS = {"defaults": None, "bursts0": 0}

@@ -2,7 +2,11 @@
 combine) against the JAX package's, on the CPU: the same inputs, made with
 numpy from a seed on the golden reference, go through the JAX functions
 and the port's plain versions (PLAIN_OPS). Everything is integer, so every
-comparison is exact equality."""
+comparison is exact equality.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +15,7 @@ import torch
 
 from test_torch_kernels import (_combine_inputs, check_stage4_coverage,
                                 stage4_cases, wire_batch)
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 
 @pytest.fixture(scope="module")

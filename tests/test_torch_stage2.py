@@ -10,7 +10,11 @@ wrappers (the plain routes on the CPU) and under the plain versions.
 The row grid's cap (NC) does not bind on the golden index, so the plain
 row grid, like the plain compaction and the loops' resume through an
 index list, is also held to JAX's own expressions on inputs built to
-fill it. All values are integers: the tolerance is exact equality."""
+fill it. All values are integers: the tolerance is exact equality.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from test_torch_kernels import (STAGE2_BURSTS, _search_inputs,
                                 compact_caps, compact_masks,
                                 golden_stage2_inputs, row_grid_inputs)
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 
 @pytest.fixture(scope="module")

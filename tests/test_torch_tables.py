@@ -1,7 +1,11 @@
 """The torch port's device tables against the JAX package's, on the golden
 index: built by the port itself from its own index loader, and carried
 across from the JAX tables by convert.tables_from_jax. Also: the port and
-chip_smoke.py import no jax, nothing of the JAX package and not bench."""
+chip_smoke.py import no jax, nothing of the JAX package and not bench.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
+"""
 import ast
 import os
 import subprocess
@@ -10,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,9 @@ version to JAX's taxon_weight_step on them. This file imports no JAX, so
 its tests marked `cuda` also run on the card:
 
     python -m pytest tests/test_torch_taxon.py -m cuda -q
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import json
 import os
@@ -24,6 +27,7 @@ import torch
 import torch_dist_worker as worker
 from desamba_tpu_torch import kernels
 from desamba_tpu_torch.ops.taxon import taxon_weights, taxon_weights_plain
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 I32_MIN, I32_MAX = -2**31, 2**31 - 1

@@ -8,6 +8,9 @@ Its two device kernels (probe_reads, row_walks_trace) are held to JAX
 through their plain versions, on the case builders of
 tests/test_torch_kernels.py that the card's tests reuse; the test marked
 `cuda` runs the engine on the card and skips without one.
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import os
 import subprocess
@@ -20,6 +23,7 @@ import torch
 from test_torch_kernels import (check_probe_coverage,
                                 check_walk_trace_coverage, probe_cases,
                                 walk_trace_cases)
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden")

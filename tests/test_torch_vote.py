@@ -7,6 +7,9 @@ comparison is exact equality. The test marked `cuda` holds the vote
 kernel to vote_plain on the card at every width bucket:
 
     python -m pytest tests/test_torch_vote.py -m cuda -q
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ import torch
 # the cuda and tables fixtures are test_torch_kernels'
 from test_torch_kernels import cuda, tables  # noqa: F401
 from test_torch_kernels import check_vote_coverage, vote_cases, vote_nwR
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 # the width buckets up to the classifier's default max_width (8192)
 WIDTHS = (256, 512, 1024, 2048, 3072, 4096, 5120, 6144, 7168, 8192)

@@ -22,6 +22,9 @@ VOTE_MAX_SLOTS slots, and a slot map left by earlier calls. Everything
 is integer: the tolerance is exact equality.
 
     python -m pytest tests/test_torch_vote_model.py -m cuda -q   # card
+
+The golden index comes from tests/torch_golden.py (built once, under a
+lock, keyed by ref.fa's content), not from conftest's shared cache.
 """
 import numpy as np
 import pytest
@@ -30,6 +33,7 @@ import torch
 from test_torch_kernels import cuda, tables  # noqa: F401
 from test_torch_kernels import (I32_MAX, I32_MIN, _wrap32,
                                 check_vote_coverage, vote_cases)
+from torch_golden import golden_index_dir, golden_oracle_index  # noqa: F401
 
 INT_MAX = I32_MAX
 INT_MIN = I32_MIN
